@@ -1,0 +1,50 @@
+"""femcy_tpu_torch: the PyTorch / CUDA port of femcy_tpu for NVIDIA Hopper.
+
+A second package beside ``femcy_tpu`` (the JAX reference, which it never
+imports).  It grows slice by slice (ROADMAP.md); what exists now is the
+structured-box linear static path: ``meshgen.box_tets`` -> ``FEMSystem``
+-> DIA assembly and Jacobi-PCG -> strain, stress, Mises, energy and
+extrapolation, with the two TPU kernels of that path rewritten by hand in
+CUDA for sm_90a (kernels/, csrc/).
+
+Tensors live on the device given to ``FEMSystem`` (no auto-detection) in
+float64 by default; ``FEMCY_TPU_X64=0`` selects float32, as in femcy_tpu.
+TF32 is off for matmuls and convolutions: f32 products run at full f32
+precision (the twin of femcy_tpu forcing "highest" matmul precision).
+"""
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+__version__ = "0.1.0"
+
+from femcy_tpu_torch.config import SolverConfig  # noqa: E402
+from femcy_tpu_torch.mesh import FEMesh  # noqa: E402
+from femcy_tpu_torch.system import FEMSystem, mises_stress  # noqa: E402
+from femcy_tpu_torch.io.inp import InpModel, read_inp  # noqa: E402
+from femcy_tpu_torch.materials import (  # noqa: E402
+    LinearIsotropic,
+    LinearIsotropicPlaneStrain,
+    LinearIsotropicPlaneStress,
+    NeoHookean,
+    material_from_inp,
+)
+from femcy_tpu_torch import meshgen  # noqa: E402
+
+__all__ = [
+    "SolverConfig",
+    "FEMesh",
+    "FEMSystem",
+    "mises_stress",
+    "InpModel",
+    "read_inp",
+    "LinearIsotropic",
+    "LinearIsotropicPlaneStress",
+    "LinearIsotropicPlaneStrain",
+    "NeoHookean",
+    "material_from_inp",
+    "meshgen",
+    "__version__",
+]

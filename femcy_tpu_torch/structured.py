@@ -1,0 +1,262 @@
+"""Scatter-free assembly for structured box_tets meshes.
+
+Torch counterpart of the structured-box parts of ``femcy_tpu.structured``.
+On a Kuhn-subdivided box (meshgen.box_tets) elements of one orientation
+form a dense cell grid, and every (orientation, local-row-dof p,
+local-col-dof q) pair writes to ONE diagonal offset of the DIA matrix with
+ONE {0,1}^3 corner shift.  Assembly is then two steps:
+
+1. the prep: per orientation, B^T C B for every cell, laid out as planes
+   (6, 144, nx*ny*nz) -- plane [o, 12 p + q] holds entry (p, q) of every
+   cell's orientation-o element stiffness, in plain cell order;
+2. the accumulate: each DIA entry (node, i, k) is the sum of the 864
+   corner-shifted planes of its (i, k) group (``build_structured_plan``).
+
+The prep is plain torch (einsum), as the JAX package left it to XLA.  The
+accumulate runs the hand-written kernel on CUDA
+(kernels/structured_accumulate.py); ``accumulate_planes`` below is its
+plain version.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from femcy_tpu_torch import assembly
+from femcy_tpu_torch.mesh import FEMesh
+from femcy_tpu_torch.solvers.dia import DIAPattern
+
+
+@dataclasses.dataclass(frozen=True)
+class StructuredPlan:
+    nx: int
+    ny: int
+    nz: int
+    n_offsets: int
+    #: (i, k) -> list of (orientation, 3a+i, 3b+j, (dx, dy, dz)) combos
+    groups: Dict[Tuple[int, int], List[Tuple[int, int, int, Tuple[int, int, int]]]]
+
+
+def _box_info(mesh: FEMesh) -> dict:
+    info = mesh.structure
+    if info is None or info.get("kind") != "box_tets":
+        raise ValueError("the structured path needs a meshgen.box_tets mesh")
+    return info
+
+
+def build_structured_plan(mesh: FEMesh, dia: DIAPattern) -> StructuredPlan:
+    """Map every element-stiffness entry class to its DIA slot, host-side."""
+    info = _box_info(mesh)
+    nx, ny, nz = info["nx"], info["ny"], info["nz"]
+    kuhn = info["kuhn"]
+    delta = np.asarray(info["corner_delta"])  # (8, 3) cube corner offsets
+    stride = np.array([(ny + 1) * (nz + 1), nz + 1, 1])
+    offsets = np.asarray(dia.offsets)
+    groups: Dict[Tuple[int, int], List] = {}
+    for o, corners in enumerate(kuhn):
+        d = delta[list(corners)]  # (4, 3) corner offset of each tet node
+        for a in range(4):
+            for b in range(4):
+                node_off = int((d[b] - d[a]) @ stride)
+                for i in range(3):
+                    for j in range(3):
+                        off = 3 * node_off + (j - i)
+                        k = int(np.searchsorted(offsets, off))
+                        if offsets[k] != off:
+                            raise ValueError(f"offset {off} missing from DIA")
+                        groups.setdefault((i, k), []).append(
+                            (o, 3 * a + i, 3 * b + j, tuple(int(x) for x in d[a]))
+                        )
+    return StructuredPlan(
+        nx=nx, ny=ny, nz=nz, n_offsets=dia.n_offsets, groups=groups
+    )
+
+
+def structured_element_nodes(node_vals, mesh: FEMesh):
+    """Per-element nodal values without the ``vals[elements]`` gather.
+
+    node_vals : (n_nodes, dm) -> (E, 4, dm) in box_tets element order: the
+    8 cell-corner grids are slices of the node grid and each element's 4
+    nodes are fixed picks of its cell's corners.
+    """
+    info = _box_info(mesh)
+    nx, ny, nz = info["nx"], info["ny"], info["nz"]
+    dm = node_vals.shape[-1]
+    grid = node_vals.reshape(nx + 1, ny + 1, nz + 1, dm)
+    corners = torch.stack(
+        [
+            grid[dx : dx + nx, dy : dy + ny, dz : dz + nz]
+            for dx, dy, dz in info["corner_delta"]
+        ],
+        dim=3,
+    )  # (nx, ny, nz, 8, dm)
+    cells = corners.reshape(nx * ny * nz, 8, dm)
+    per_orient = torch.stack(
+        [cells[:, list(c)] for c in info["kuhn"]], dim=1
+    )  # (nc, 6, 4, dm)
+    return per_orient.reshape(-1, 4, dm)
+
+
+def stiffness_planes(coords, mesh: FEMesh, dN, w, C):
+    """The plain prep: node coordinates -> (6, 144, nx*ny*nz) planes.
+
+    Plane [o, 12 p + q] is entry (p, q) of the orientation-o element
+    stiffness (``assembly.element_stiffness(..., layout="ije")``) of every
+    cell, in plain cell order (cx * ny + cy) * nz + cz.  Computed one
+    orientation at a time so only one sixth of the element data is live.
+    """
+    info = _box_info(mesh)
+    nc = info["nx"] * info["ny"] * info["nz"]
+    x_e = structured_element_nodes(coords, mesh).reshape(nc, 6, 4, -1)
+    planes = coords.new_empty((6, 144, nc))
+    for o in range(6):
+        dsdx, vol = assembly.gradients_and_volume_x(x_e[:, o], dN, w)
+        planes[o] = assembly.element_stiffness(
+            dsdx, vol, C, layout="ije"
+        ).reshape(144, nc)
+    return planes
+
+
+def accumulate_planes(planes, plan: StructuredPlan):
+    """The plain accumulate: (6, 144, nc) planes -> DIA values (n_dof, K).
+
+    A port of femcy_tpu.structured._accumulate: per orientation, every
+    touched (i, k) column is the sum of corner-shifted cell grids.  It works
+    in FLAT node space: padding each (p, q) cell grid with one zero layer
+    per axis makes every corner-shifted 3D pad a 1D slice at offset
+    dx*sx + dy*sy + dz (the zero layers absorb the axis wrap-around).
+    Sums per orientation in plan order, then over orientations.
+    """
+    nx, ny, nz, K = plan.nx, plan.ny, plan.nz, plan.n_offsets
+    by_orient: Dict[int, Dict[Tuple[int, int], List]] = {o: {} for o in range(6)}
+    for (i, k), combos in plan.groups.items():
+        for o, p, q, shift in combos:
+            by_orient[o].setdefault((i, k), []).append((p, q, shift))
+
+    sx, sy = (ny + 1) * (nz + 1), nz + 1
+    Nn = (nx + 1) * sx
+    pad_lo = sx + sy + 1  # the largest corner shift
+    mat = planes.new_zeros((3 * K, Nn))
+    for o in range(6):
+        Ko = planes[o].reshape(12, 12, nx, ny, nz)
+        Kop = F.pad(Ko, (0, 1, 0, 1, 0, 1)).reshape(12, 12, Nn)
+        Kop = F.pad(Kop, (pad_lo, 0))
+        for (i, k), combos in by_orient[o].items():
+            acc = None
+            for p, q, (dx, dy, dz) in combos:
+                off = dx * sx + dy * sy + dz
+                term = Kop[p, q, pad_lo - off : pad_lo - off + Nn]
+                acc = term if acc is None else acc + term
+            mat[i * K + k] += acc
+    # (3K, Nn) -> (n_dof, K): rows are node*3 + i, columns the offsets
+    return mat.reshape(3, K, Nn).permute(2, 0, 1).reshape(-1, K)
+
+
+def analytic_cell_tensor(
+    mesh: FEMesh, C: np.ndarray, dia: DIAPattern
+) -> np.ndarray:
+    """The per-corner-shift constant row tensor c[sx, sy, sz, i, k] of a
+    uniform box_tets grid with a constant material tangent: the whole
+    operator, compressed to (2, 2, 2, 3, K) numpy.  Host copy of the JAX
+    package's, the f64 oracle of the structured assembly.
+    """
+    info = _box_info(mesh)
+    nx, ny, nz = info["nx"], info["ny"], info["nz"]
+    kuhn = info["kuhn"]
+    delta = np.asarray(info["corner_delta"])
+    spacing = np.array(
+        [
+            mesh.nodes[:, 0].max() / nx,
+            mesh.nodes[:, 1].max() / ny,
+            mesh.nodes[:, 2].max() / nz,
+        ]
+    )
+    elem = mesh.element
+    dN = np.asarray(elem.dshape_at_gp)  # (G, n, 3)
+    w = np.asarray(elem.gauss_weights)
+    C = np.asarray(C)
+
+    # one cell's per-orientation element stiffness, plain numpy
+    corner_x = delta * spacing  # (8, 3) physical corner coords
+    Ke = np.zeros((6, 12, 12))
+    for o, corners in enumerate(kuhn):
+        x = corner_x[list(corners)]  # (4, 3)
+        dxdn = np.einsum("nD,gnd->gDd", x, dN)  # (G, 3, 3)
+        dsdx = np.einsum("gnd,gdD->gnD", dN, np.linalg.inv(dxdn))
+        vol = np.linalg.det(dxdn) * w  # (G,)
+        G, n = dsdx.shape[0], dsdx.shape[1]
+        B = np.zeros((G, 6, 3 * n))
+        Nx, Ny, Nz = dsdx[..., 0], dsdx[..., 1], dsdx[..., 2]
+        B[:, 0, 0::3], B[:, 1, 1::3], B[:, 2, 2::3] = Nx, Ny, Nz
+        B[:, 3, 0::3], B[:, 3, 1::3] = Ny, Nx
+        B[:, 4, 0::3], B[:, 4, 2::3] = Nz, Nx
+        B[:, 5, 1::3], B[:, 5, 2::3] = Nz, Ny
+        Ke[o] = np.einsum("gai,ab,gbj,g->ij", B, C, B, vol)
+
+    offsets = np.asarray(dia.offsets)
+    K = dia.n_offsets
+    stride = np.array([(ny + 1) * (nz + 1), nz + 1, 1])
+    c = np.zeros((2, 2, 2, 3, K))
+    for o, corners in enumerate(kuhn):
+        d = delta[list(corners)]
+        for a in range(4):
+            sx, sy, sz = (int(v) for v in d[a])
+            for b in range(4):
+                node_off = int((d[b] - d[a]) @ stride)
+                for i in range(3):
+                    for j in range(3):
+                        k = int(np.searchsorted(offsets, 3 * node_off + (j - i)))
+                        c[sx, sy, sz, i, k] += Ke[o, 3 * a + i, 3 * b + j]
+    return c
+
+
+def analytic_structured_dia_values(
+    mesh: FEMesh, C: np.ndarray, dia: DIAPattern
+) -> np.ndarray:
+    """DIA values (n_dof, K) of the assembled operator on a uniform
+    box_tets grid with a constant material tangent, in O(n_dof * K) numpy
+    from ONE cell (see analytic_cell_tensor)."""
+    info = _box_info(mesh)
+    nx, ny, nz = info["nx"], info["ny"], info["nz"]
+    c = analytic_cell_tensor(mesh, C, dia)
+    K = c.shape[-1]
+
+    # broadcast through separable cell-existence masks: the cell at
+    # (p - s) exists iff s <= p <= n-1+s along each axis
+    V = np.zeros((nx + 1, ny + 1, nz + 1, 3, K))
+    masks = {
+        0: [(np.arange(n + 1) <= n - 1).astype(float) for n in (nx, ny, nz)],
+        1: [(np.arange(n + 1) >= 1).astype(float) for n in (nx, ny, nz)],
+    }
+    for sx in (0, 1):
+        for sy in (0, 1):
+            for sz in (0, 1):
+                m = (
+                    masks[sx][0][:, None, None]
+                    * masks[sy][1][None, :, None]
+                    * masks[sz][2][None, None, :]
+                )
+                V += m[..., None, None] * c[sx, sy, sz]
+    return V.reshape(-1, K)
+
+
+def dia_dirichlet_linear_numpy(
+    values: np.ndarray, offsets, diag_idx: int, fixed: np.ndarray
+) -> np.ndarray:
+    """Host twin of solvers.dia.dia_dirichlet_linear for homogeneous
+    (sval = 0) elimination."""
+    n = fixed.shape[0]
+    pad_lo = max(0, -min(offsets))
+    pad_hi = max(0, max(offsets))
+    fixed_pad = np.pad(np.asarray(fixed, dtype=bool), (pad_lo, pad_hi))
+    col_fixed = np.stack(
+        [fixed_pad[pad_lo + off : pad_lo + off + n] for off in offsets], axis=1
+    )
+    out = np.where(col_fixed | fixed[:, None], 0.0, values)
+    out[:, diag_idx] = np.where(fixed, 1.0, out[:, diag_idx])
+    return out
