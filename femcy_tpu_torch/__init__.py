@@ -3,9 +3,13 @@
 A second package beside ``femcy_tpu`` (the JAX reference, which it never
 imports).  It grows slice by slice (ROADMAP.md); what exists now is the
 structured-box linear static path: ``meshgen.box_tets`` -> ``FEMSystem``
--> DIA assembly and Jacobi-PCG -> strain, stress, Mises, energy and
-extrapolation, with the two TPU kernels of that path rewritten by hand in
-CUDA for sm_90a (kernels/, csrc/).
+-> DIA assembly from the node coordinates -> Dirichlet elimination ->
+direct solve, or PCG with a Jacobi, block-Jacobi or geometric-multigrid
+preconditioner -> strain, stress, Mises, energy and extrapolation.  The
+three TPU kernels of the JAX package are rewritten by hand in CUDA for
+sm_90a (kernels/, csrc/): the DIA SpMV (every PCG iteration and multigrid
+level), the structured accumulate (the two-stage assembly) and the fused
+coordinates-to-DIA assembly (the isotropic default).
 
 Tensors live on the device given to ``FEMSystem`` (no auto-detection) in
 float64 by default; ``FEMCY_TPU_X64=0`` selects float32, as in femcy_tpu.

@@ -21,8 +21,6 @@ _LATER = (
      "the general ELL layout (ROADMAP slice B)"),
     ("dense_operator_max_dof", lambda v: v != 0,
      "the dense small-model CG (ROADMAP slice G)"),
-    ("preconditioner", lambda v: v == "multigrid",
-     "the geometric multigrid (ROADMAP slice F, next structured PR)"),
     ("preconditioner", lambda v: v == "amg",
      "algebraic multigrid on the ELL path (ROADMAP slice E)"),
     ("mixed_precision_refine", bool,

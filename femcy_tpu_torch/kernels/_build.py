@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (csrc/*.cu).
 
 At first use the sources are compiled with ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, which is
-loaded with ``ctypes``.  The library goes to ``femcy_tpu_torch/_build/``
+(``sm_90a``), one ``nvcc`` per source, all started together, and linked
+into one shared library with a plain C interface, which is loaded with
+``ctypes``.  The library goes to ``femcy_tpu_torch/_build/``
 (git-ignored) under a name that carries a hash of the sources and flags,
 so a stale library is never loaded.  Nothing is built or imported when a
 module is imported: the CPU tests import every module.
@@ -30,7 +31,7 @@ BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 #: where nvcc is looked for after $CUDA_HOME/bin and $PATH
@@ -83,23 +84,37 @@ def build_library() -> pathlib.Path:
             + "); CUDA tensors need the CUDA toolkit"
         )
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a temporary name and rename: a concurrent build never
-    # sees a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                "nvcc failed to build the femcy_tpu_torch CUDA kernels "
-                f"(exit {proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-            )
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    # build in a temporary directory and rename the library into place: a
+    # concurrent build never sees a half-written library
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in _sources():
+            obj = os.path.join(tmp, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        # wait for every compile before raising, so none outlives the call
+        results = []
+        for cmd, p in procs:
+            _, err = p.communicate()
+            results.append((cmd, p.returncode, err))
+        for cmd, code, err in results:
+            _check(cmd, code, err)
+        lib = os.path.join(tmp, out.name)
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        _check(link, proc.returncode, proc.stderr)
+        os.replace(lib, out)
     return out
+
+
+def _check(cmd, code: int, stderr: str) -> None:
+    if code != 0:
+        raise RuntimeError(
+            "nvcc failed to build the femcy_tpu_torch CUDA kernels "
+            f"(exit {code}): {' '.join(cmd)}\n{stderr}"
+        )
 
 
 def load_library() -> ctypes.CDLL:

@@ -184,10 +184,7 @@ def dia_pcg_solve(values, offsets: Tuple[int, ...], diag_idx: int, b,
     """Preconditioned CG on the DIA operator.
 
     The same iteration and stopping rule as femcy_tpu.solvers.dia
-    .dia_pcg_solve: iterate while ``k < max_iters`` and
-    ``max|r| >= eps * max|b|`` (x0 = 0, so r0 = b), and not at all when
-    b = 0.  The loop runs on the host; each iteration reads one scalar back
-    for the stopping test.
+    .dia_pcg_solve (``pcg`` below); ``max_iters <= 0`` means n.
 
     block_dm > 0 uses the block-Jacobi preconditioner with dm x dm node
     blocks; 0 keeps the reference's scalar Jacobi
@@ -227,8 +224,18 @@ def dia_pcg_solve(values, offsets: Tuple[int, ...], diag_idx: int, b,
         def apply_m(r):
             return minv * r
 
+    return pcg(apply_a, apply_m, b, eps, max_iters)
+
+
+def pcg(apply_a, apply_m, b, eps: float, max_iters: int):
+    """Preconditioned CG from x0 = 0 with operator ``apply_a`` and
+    preconditioner ``apply_m``: iterate while ``k < max_iters`` and
+    ``max|r| >= eps * max|b|``, not at all when b = 0 (femcy_tpu's
+    stopping rule).  The loop runs on the host; each iteration reads one
+    scalar back for the stopping test.  Returns (x, iterations, max|r|).
+    """
     x = torch.zeros_like(b)
-    r = b.clone()
+    r = b
     d = apply_m(r)
     rmr = torch.dot(r, d)
     rmax0 = r.abs().max()

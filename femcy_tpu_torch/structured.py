@@ -4,24 +4,30 @@ Torch counterpart of the structured-box parts of ``femcy_tpu.structured``.
 On a Kuhn-subdivided box (meshgen.box_tets) elements of one orientation
 form a dense cell grid, and every (orientation, local-row-dof p,
 local-col-dof q) pair writes to ONE diagonal offset of the DIA matrix with
-ONE {0,1}^3 corner shift.  Assembly is then two steps:
+ONE {0,1}^3 corner shift (``build_structured_plan``).
+``structured_assemble_coords`` takes node coordinates to DIA values by one
+of three routes:
 
-1. the prep: per orientation, B^T C B for every cell, laid out as planes
-   (6, 144, nx*ny*nz) -- plane [o, 12 p + q] holds entry (p, q) of every
-   cell's orientation-o element stiffness, in plain cell order;
-2. the accumulate: each DIA entry (node, i, k) is the sum of the 864
-   corner-shifted planes of its (i, k) group (``build_structured_plan``).
+- "fused" (P3, kernels/structured_fused.py): one CUDA kernel from the
+  coordinates to the DIA values, for one-Gauss-point elements with an
+  isotropic tangent; ``fused_assemble_plain`` is its plain version;
+- "pallas", the two-stage path: the prep (``stiffness_planes``, plain
+  torch: per orientation, B^T C B for every cell, laid out as planes
+  (6, 144, nx*ny*nz) in plain cell order, with the cheap 3-term form for
+  an isotropic tangent) and the accumulate kernel (P2,
+  kernels/structured_accumulate.py), which sums the 864 corner-shifted
+  planes of each (i, k) group; ``accumulate_planes`` is its plain version;
+- "xla", the plain torch path: the generic prep and ``accumulate_planes``.
 
-The prep is plain torch (einsum), as the JAX package left it to XLA.  The
-accumulate runs the hand-written kernel on CUDA
-(kernels/structured_accumulate.py); ``accumulate_planes`` below is its
-plain version.
+On CUDA the default is "fused" where it applies and "pallas" otherwise;
+on the CPU it is the plain path.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+import functools
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +46,22 @@ class StructuredPlan:
     n_offsets: int
     #: (i, k) -> list of (orientation, 3a+i, 3b+j, (dx, dy, dz)) combos
     groups: Dict[Tuple[int, int], List[Tuple[int, int, int, Tuple[int, int, int]]]]
+
+    # The kernels' combo tables, built at first use and kept with the plan
+    # (with their device copies), so an assembly uploads nothing.
+    @functools.cached_property
+    def accumulate_table(self):
+        """The combo list as P2's CSR table (kernels.structured_accumulate)."""
+        from femcy_tpu_torch.kernels.structured_accumulate import AccumulateTable
+
+        return AccumulateTable(self)
+
+    @functools.cached_property
+    def fused_table(self):
+        """The combo list as P3's table (kernels.structured_fused)."""
+        from femcy_tpu_torch.kernels.structured_fused import FusedTable
+
+        return FusedTable(self)
 
 
 def _box_info(mesh: FEMesh) -> dict:
@@ -102,24 +124,138 @@ def structured_element_nodes(node_vals, mesh: FEMesh):
     return per_orient.reshape(-1, 4, dm)
 
 
-def stiffness_planes(coords, mesh: FEMesh, dN, w, C):
+def isotropic_lame(C_host, rtol: float = 1.0e-6):
+    """(lam, mu) if the 6x6 Voigt tangent is isotropic, else None (host
+    numpy, the JAX package's kernels.structured_fused.isotropic_lame)."""
+    C = np.asarray(C_host, dtype=np.float64)
+    if C.shape != (6, 6):
+        return None
+    lam = float(C[0, 1])
+    mu = float(C[3, 3])
+    iso = np.zeros((6, 6))
+    iso[:3, :3] = lam
+    iso[np.arange(3), np.arange(3)] = lam + 2.0 * mu
+    iso[np.arange(3, 6), np.arange(3, 6)] = mu
+    scale = np.abs(C).max()
+    if scale == 0.0 or np.abs(C - iso).max() > rtol * scale:
+        return None
+    return lam, mu
+
+
+def _isotropic_stiffness(dsdx, vol, lam: float, mu: float):
+    """(nc, 4, 3) gradients and (nc,) volumes -> (144, nc) element
+    stiffness, Ke[(a,i),(b,j)] = vol * (lam dNa_i dNb_j + mu dNa_j dNb_i
+    + delta_ij mu dNa.dNb): C = lam (1 x 1) + 2 mu I collapses B^T C B
+    to three terms."""
+    ds = dsdx.permute(1, 2, 0)  # (4, 3, nc): [a, i]
+    ds_ib = ds.transpose(0, 1)  # (3, 4, nc): [i, b]
+    G = (ds[:, None] * ds[None]).sum(2)  # (4, 4, nc): dNa . dNb
+    eye = torch.eye(3, dtype=ds.dtype, device=ds.device)
+    Ke = (
+        lam * (ds[:, :, None, None] * ds[None, None])
+        + mu * (ds[:, None, None, :] * ds_ib[None, :, :, None])
+        + mu * (G[:, None, :, None] * eye[None, :, None, :, None])
+    )  # (4, 3, 4, 3, nc): [a, i, b, j]
+    return (Ke * vol).reshape(144, -1)
+
+
+def stiffness_planes(coords, mesh: FEMesh, dN, w, C, lame=None):
     """The plain prep: node coordinates -> (6, 144, nx*ny*nz) planes.
 
     Plane [o, 12 p + q] is entry (p, q) of the orientation-o element
     stiffness (``assembly.element_stiffness(..., layout="ije")``) of every
     cell, in plain cell order (cx * ny + cy) * nz + cz.  Computed one
     orientation at a time so only one sixth of the element data is live.
+
+    lame: optional (lam, mu) of an isotropic tangent (``isotropic_lame``),
+    for one-Gauss-point elements: the 3-term form replaces B^T C B, and C
+    is not read.
     """
     info = _box_info(mesh)
     nc = info["nx"] * info["ny"] * info["nz"]
+    if lame is not None and dN.shape[0] != 1:
+        raise ValueError("the isotropic 3-term prep needs one Gauss point")
     x_e = structured_element_nodes(coords, mesh).reshape(nc, 6, 4, -1)
     planes = coords.new_empty((6, 144, nc))
     for o in range(6):
         dsdx, vol = assembly.gradients_and_volume_x(x_e[:, o], dN, w)
-        planes[o] = assembly.element_stiffness(
-            dsdx, vol, C, layout="ije"
-        ).reshape(144, nc)
+        if lame is not None:
+            planes[o] = _isotropic_stiffness(dsdx[:, 0], vol[:, 0], *lame)
+        else:
+            planes[o] = assembly.element_stiffness(
+                dsdx, vol, C, layout="ije"
+            ).reshape(144, nc)
     return planes
+
+
+def fused_assemble_plain(coords, mesh: FEMesh, lam: float, mu: float,
+                         plan: StructuredPlan):
+    """The plain version of P3: the isotropic planes, then
+    ``accumulate_planes``, with the element's own quadrature tables."""
+    elem = mesh.element
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a), dtype=coords.dtype,
+                               device=coords.device)
+
+    planes = stiffness_planes(coords, mesh, dev(elem.dshape_at_gp),
+                              dev(elem.gauss_weights), None, lame=(lam, mu))
+    return accumulate_planes(planes, plan)
+
+
+_MODES = ("fused", "pallas", "xla")
+
+
+def auto_accumulate(device, lame, n_gauss: int) -> str:
+    """The route ``structured_assemble_coords`` takes by default: on CUDA,
+    "fused" for an isotropic tangent and one Gauss point, else "pallas";
+    on the CPU, the plain path."""
+    if torch.device(device).type != "cuda":
+        return "xla"
+    return "fused" if lame is not None and n_gauss == 1 else "pallas"
+
+
+def structured_assemble_coords(coords, mesh: FEMesh, dN, w, C,
+                               plan: StructuredPlan,
+                               accumulate: Optional[str] = None,
+                               C_host=None):
+    """Node coordinates -> DIA values (n_dof, K).
+
+    accumulate: None (``auto_accumulate``), "fused" (P3; raises if the
+    plan is unsupported: it needs an isotropic ``C_host`` and a
+    one-Gauss-point element), "pallas" (the prep, with the 3-term form for
+    an isotropic ``C_host``, then P2) or "xla" (the plain torch path; the
+    name is femcy_tpu's, kept so its callers work).  The kernel wrappers
+    run their plain versions on CPU tensors.
+
+    C_host: optional host numpy copy of the material tangent, read for its
+    Lame constants.  dN/w must be the element's own quadrature tables,
+    which the fused route reads from ``mesh.element``.
+    """
+    if accumulate is not None and accumulate not in _MODES:
+        raise ValueError(f"accumulate={accumulate!r}: expected None or one of "
+                         f"{_MODES}")
+    lame = isotropic_lame(C_host) if C_host is not None else None
+    n_gauss = np.asarray(mesh.element.dshape_at_gp).shape[0]
+    mode = accumulate or auto_accumulate(coords.device, lame, n_gauss)
+    if mode == "fused":
+        from femcy_tpu_torch.kernels import structured_fused
+
+        fp = structured_fused.build_fused_plan(mesh, plan, C_host)
+        if fp is None:
+            raise ValueError(
+                "accumulate='fused' forced but the fused kernel is "
+                "unsupported here (needs an isotropic C_host and a "
+                "one-Gauss-point element)"
+            )
+        return structured_fused.fused_assemble(coords, fp)
+    if mode == "pallas":
+        from femcy_tpu_torch.kernels.structured_accumulate import accumulate as acc
+
+        planes = stiffness_planes(coords, mesh, dN, w, C,
+                                  lame=lame if n_gauss == 1 else None)
+        return acc(planes, plan.accumulate_table)
+    return accumulate_planes(stiffness_planes(coords, mesh, dN, w, C), plan)
 
 
 def accumulate_planes(planes, plan: StructuredPlan):

@@ -4,13 +4,17 @@
 Torch counterpart of ``femcy_tpu.system.FEMSystem`` for its structured
 branch (meshes from ``meshgen.box_tets``) and the linear static analysis:
 
-- assembly is the structured prep (plain torch B^T C B into per-orientation
-  stiffness planes) and the accumulate kernel (kernels/structured_accumulate)
-  into the DIA layout;
+- assembly goes from the node coordinates to the DIA layout through
+  ``structured.structured_assemble_coords``: on CUDA the fused kernel
+  (kernels/structured_fused, P3) for an isotropic material, else the prep
+  and the accumulate kernel (kernels/structured_accumulate, P2); on the
+  CPU their plain torch versions;
 - Dirichlet conditions are eliminated on the DIA layout;
 - the linear solve is the host direct solve below ``direct_solve_max_dof``
-  dofs, the Jacobi (or block-Jacobi) PCG above it, whose SpMV is the DIA
-  kernel (kernels/dia_spmv) unless ``SolverConfig.spmv == "slices"``;
+  dofs, the PCG above it: Jacobi, block-Jacobi or the geometric multigrid
+  V-cycle (solvers/multigrid, ``preconditioner="multigrid"``), whose SpMV
+  at every level but the coarsest is the DIA kernel (kernels/dia_spmv)
+  unless ``SolverConfig.spmv == "slices"``;
 - the adaptive load-stepping loop of ``solve`` is the JAX package's, with
   the linear branch of its increment.
 
@@ -36,10 +40,6 @@ from femcy_tpu_torch import assembly, bc as bc_mod
 from femcy_tpu_torch.config import SolverConfig
 from femcy_tpu_torch.io.inp import InpModel
 from femcy_tpu_torch.kernels.dia_spmv import make_spmv
-from femcy_tpu_torch.kernels.structured_accumulate import (
-    AccumulateTable,
-    accumulate,
-)
 from femcy_tpu_torch.materials import Material
 from femcy_tpu_torch.mesh import FEMesh
 from femcy_tpu_torch.solvers.dia import (
@@ -48,7 +48,11 @@ from femcy_tpu_torch.solvers.dia import (
     dia_pcg_solve,
 )
 from femcy_tpu_torch.solvers.direct import direct_solve
-from femcy_tpu_torch.structured import build_structured_plan, stiffness_planes
+from femcy_tpu_torch.solvers.multigrid import StructuredMultigrid, coarsen_grids
+from femcy_tpu_torch.structured import (
+    build_structured_plan,
+    structured_assemble_coords,
+)
 from femcy_tpu_torch.utils.timing import Timer
 
 logger = logging.getLogger("femcy_tpu_torch")
@@ -108,7 +112,17 @@ class FEMSystem:
                 "slice C and the structured Newton slice), not yet ported "
                 "to femcy_tpu_torch"
             )
-        if mesh.structure is None or mesh.structure.get("kind") != "box_tets":
+        box = mesh.structure is not None and mesh.structure.get("kind") == "box_tets"
+        if config.preconditioner == "multigrid":
+            if not box:
+                raise ValueError(
+                    "preconditioner='multigrid' needs a structured box_tets "
+                    "mesh with the DIA layout (e.g. meshgen.box_tets)"
+                )
+            # fail fast, before any setup, if the grid cannot be coarsened
+            info = mesh.structure
+            coarsen_grids((info["nx"], info["ny"], info["nz"]))
+        if not box:
             raise NotImplementedError(
                 "meshes without box_tets structure need the general ELL "
                 "path (ROADMAP slice B), not yet ported to femcy_tpu_torch"
@@ -140,7 +154,6 @@ class FEMSystem:
         # analytic pattern + scatter-free assembly plan (O(1) host setup)
         self.dia = build_structured_dia_pattern(mesh)
         self._structured_plan = build_structured_plan(mesh, self.dia)
-        self._acc_table = AccumulateTable(self._structured_plan)
 
         elem = mesh.element
 
@@ -183,16 +196,22 @@ class FEMSystem:
         self._block_dm = (
             mesh.dm if config.preconditioner == "block_jacobi" else 0
         )
+        # geometric multigrid (lazy: needs the fixed-dof mask, known only at
+        # solve time)
+        self._mg: Optional[StructuredMultigrid] = None
+        self._mg_fixed_key: Optional[bytes] = None
 
     # ------------------------------------------------------------------ #
     # device steps
     # ------------------------------------------------------------------ #
     def _assemble_values(self):
         """DIA values (n_dof, K) of the stiffness on the initial
-        configuration: the structured prep, then the accumulate kernel."""
+        configuration, by structured_assemble_coords' default route."""
         a = self._arrs
-        planes = stiffness_planes(a["nodes"], self.mesh, a["dN"], a["w"], a["C"])
-        return accumulate(planes, self._acc_table)
+        return structured_assemble_coords(
+            a["nodes"], self.mesh, a["dN"], a["w"], a["C"],
+            self._structured_plan, C_host=np.asarray(self.material.C),
+        )
 
     def _linear_system(self, rhs, fixed, sval):
         """Assemble + Dirichlet-eliminate for the linear path, always on the
@@ -203,9 +222,11 @@ class FEMSystem:
         )
         return values, rhs, self._arrs["vol0"]
 
-    def _solve_linear_system(self, values, b):
+    def _solve_linear_system(self, values, b, fixed):
         """Direct host solve below ``direct_solve_max_dof`` dofs (or when
-        forced), the DIA PCG otherwise (ref: stiffnessMtrx.py:272-276)."""
+        forced), the DIA PCG otherwise (ref: stiffnessMtrx.py:272-276);
+        ``fixed`` (the Dirichlet mask ``values`` was eliminated with) keys
+        the multigrid hierarchy."""
         cfg = self.config
         use_direct = cfg.linear_solver == "direct" or (
             cfg.linear_solver == "auto"
@@ -216,6 +237,18 @@ class FEMSystem:
                 self.dia, values.cpu().numpy(), b.cpu().numpy()
             )
             return torch.as_tensor(x, dtype=self.dtype, device=self.device)
+        if cfg.preconditioner == "multigrid":
+            self._ensure_multigrid(fixed)
+            # <=0 means "up to n_dof", like the Jacobi path
+            max_iters = cfg.cg_max_iters if cfg.cg_max_iters > 0 else self.mesh.n_dof
+            x, iters, rmax = self._mg.pcg_solve(
+                values, b, eps=cfg.cg_eps, max_iters=max_iters, spmv=self._spmv
+            )
+            if cfg.verbose:
+                logger.info("MG-CG: %d iters, ||r||_inf=%.3e", iters, float(rmax))
+            self._warn_cg_cap(iters, rmax, b)
+            self._last_cg_iters = iters
+            return x
         x, iters, rmax = dia_pcg_solve(
             values, self.dia.offsets, self.dia.diag_idx, b,
             eps=cfg.cg_eps, max_iters=cfg.cg_max_iters,
@@ -226,6 +259,20 @@ class FEMSystem:
         self._warn_cg_cap(iters, rmax, b)
         self._last_cg_iters = iters
         return x
+
+    def _ensure_multigrid(self, fixed):
+        """Build (or rebuild, if the fixed-dof mask changed) the V-cycle
+        hierarchy; it is reused across increments while the mask holds."""
+        fixed_host = fixed.cpu().numpy()
+        key = fixed_host.tobytes()
+        if self._mg is not None and self._mg_fixed_key == key:
+            return
+        self._mg = StructuredMultigrid(
+            self.mesh, self.material, fixed_host, dia=self.dia,
+            coarse_spmv="slices" if self.config.spmv == "slices" else "auto",
+            device=self.device, dtype=self.dtype,
+        )
+        self._mg_fixed_key = key
 
     def _warn_cg_cap(self, iters, rmax, b):
         """Warn when the CG exited on its iteration cap unconverged: the
@@ -332,7 +379,7 @@ class FEMSystem:
         with self.timer.section("assemble+bc"):
             values, rhs_bc, vol = self._linear_system(rhs, fixed, sval)
         with self.timer.section("linear_solve"):
-            self.dof = self._solve_linear_system(values, rhs_bc)
+            self.dof = self._solve_linear_system(values, rhs_bc, fixed)
         self._last_vol = vol
         return 0, 0.0
 

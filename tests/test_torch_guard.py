@@ -28,7 +28,9 @@ def test_imports_and_solves_without_jax():
         import numpy as np
         import femcy_tpu_torch as T
         from femcy_tpu_torch.io.inp import DirichletBC, InpModel
-        from femcy_tpu_torch.kernels import dia_spmv, structured_accumulate
+        from femcy_tpu_torch.kernels import (
+            dia_spmv, structured_accumulate, structured_fused)
+        from femcy_tpu_torch.solvers import multigrid
 
         mesh = T.meshgen.box_tets(3, 2, 2)
         bottom = np.nonzero(mesh.nodes[:, 2] < 1e-9)[0]
@@ -42,6 +44,10 @@ def test_imports_and_solves_without_jax():
         s = T.FEMSystem(mesh, T.LinearIsotropic(1000.0, 0.3),
                         config=T.SolverConfig(linear_solver="cg"))
         assert s.solve(inp).success and s._last_cg_iters > 0
+        m = T.FEMSystem(mesh, T.LinearIsotropic(1000.0, 0.3),
+                        config=T.SolverConfig(linear_solver="cg",
+                                              preconditioner="multigrid"))
+        assert m.solve(inp).success and m._last_cg_iters > 0
         assert np.isfinite(s.dof.numpy()).all()
         assert not any(m == "jax" or m.startswith(("jax.", "femcy_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)

@@ -132,7 +132,7 @@ def test_solver_config_fields_and_defaults():
     [
         {"sparse_format": "ell"},
         {"dense_operator_max_dof": 10},
-        {"preconditioner": "multigrid"},
+        {"sharding": "banded"},
         {"preconditioner": "amg"},
         {"mixed_precision_refine": True},
         {"sharding": "slab"},
