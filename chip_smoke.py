@@ -46,10 +46,42 @@ Phases (any failure raises, and the script exits non-zero):
    (Jacobi PCG), counters zeroed and read around it; then, on
    box_tets(9, 7, 5), the CG path with cg_eps=1e-10 against the host
    direct solve.
-7. print the kernel table as one JSON line (launches from the path that
+7. general kernels: in float32 and float64, on unstructured_box_tets(9)
+   and (56) (random node numbering, 0.2-cell jitter, seed 0):
+   - M1 deterministic stiffness scatter kernel vs its plain version (the
+     indexed add of the expanded targets) and, in float64, vs the f64
+     host operator (``assembly_host.assemble_csr_host``; in float32 that
+     reading is printed, not gated: it measures the f32 element math);
+     bit-identical on a rerun;
+   - M2 ELL SpMV kernel vs the plain row gather on the operator after
+     Dirichlet elimination, x seeded with numpy.
+   Tolerances as in phase 3; at NX=56 both timed in turns.
+8. ELL slice (the general main path): FEMSystem(unstructured_box_tets(56),
+   LinearIsotropic(1000, 0.3), SolverConfig(), device="cuda") in float64
+   (1,053,696 C3D4 elements, 555,579 dofs; "auto" picks the ELL layout
+   and the Jacobi CG), the boundary model of phase 5, every launch counter
+   zeroed just before and read just after.  Checks: M1 launched once per
+   assembly, M2 once per CG iteration, P1-P3 never; the operator against
+   the f64 host operator (1e-12), M1 bit-identical on a rerun, ||A x -
+   b||_inf <= cg_eps * ||b||_inf with the plain SpMV, the prescribed ux
+   within the residual of its rows, finite output of the expected shapes,
+   and the system's SpMV kernel against the plain SpMV on the eliminated
+   operator (1e-12, x seeded with numpy).
+   Prints the init wall with its phases, the first and warm solve walls
+   and the Timer sections.  This is not the twin of the JAX bench cell
+   c3d4_1053k_unstructured_amg, which needs the AMG (not ported yet).
+9. general-DIA slice: the same on box_hexes(48, 48, 48) (110,592 C3D8
+   elements, 352,947 dofs, K = 99 offsets): M1 into the DIA slots, P1 in
+   the CG; operator vs the host operator and vs M1's plain version, P1 vs
+   the plain ``dia_spmv`` at these 99 mesh-derived offsets.
+10. .inp entry point: an unstructured_box_tets(12) C3D4 model written as
+   Abaqus text (node sets, *Boundary, a *Surface with a *Dsload
+   pressure, *Elastic, *Static), read with read_inp, solved on the card
+   with the CG at cg_eps=1e-10 (M1 and M2) against the host direct solve.
+11. print the kernel table as one JSON line (launches from the path that
    runs each kernel: P1 and P3 from the multigrid slice, P2 from the
-   two-stage path), then the result line ``{"ok": true, "device": {...}}``
-   last.
+   two-stage path, M1 and M2 from the ELL slice), then the result line
+   ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
@@ -64,6 +96,11 @@ import numpy as np
 TOL = {"float32": 1e-5, "float64": 1e-12}
 DEVICE = "cuda"
 SMALL, FULL = (9, 7, 5), (56, 56, 56)
+#: unstructured_box_tets sizes of the general kernel checks; the last one
+#: is the ELL slice's mesh
+UNSTRUCT = (9, 56)
+HEX = (48, 48, 48)
+INP_NX = 12
 
 
 def check(ok: bool, what: str) -> None:
@@ -104,6 +141,32 @@ def in_turns(plain, kernel, reps_plain: int, reps_kernel: int):
     k2 = cuda_ms(kernel, reps_kernel)
     p2 = cuda_ms(plain, reps_plain)
     return (k1 + k2) / 2.0, (p1 + p2) / 2.0
+
+
+def launch_counters():
+    """Every kernel wrapper by its row name in the kernel table."""
+    from femcy_tpu_torch.kernels import (
+        dia_spmv,
+        ell_scatter,
+        ell_spmv,
+        structured_accumulate,
+        structured_fused,
+    )
+
+    return {"dia_spmv": dia_spmv.spmv,
+            "structured_accumulate": structured_accumulate.accumulate,
+            "structured_fused": structured_fused.fused_assemble,
+            "ell_scatter": ell_scatter.scatter,
+            "ell_spmv": ell_spmv.spmv}
+
+
+def zero_launches() -> None:
+    for fn in launch_counters().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in launch_counters().items()}
 
 
 def z_faces(mesh):
@@ -320,14 +383,14 @@ def two_stage_run(torch, full_ref):
     return launches
 
 
-def boundary_model(mesh, ux: float):
+def boundary_model(mesh, ux: float, element_type: str = "C3D4"):
     from femcy_tpu_torch.io.inp import DirichletBC, InpModel
 
     bottom, top = z_faces(mesh)
     bcs = [DirichletBC(bottom, d, 0.0) for d in range(3)]
     bcs.append(DirichletBC(top, 0, ux))
     return InpModel(
-        nodes=mesh.nodes, elements=mesh.elements, element_type="C3D4",
+        nodes=mesh.nodes, elements=mesh.elements, element_type=element_type,
         node_sets={"bottom": bottom, "top": top}, ele_sets={}, face_sets={},
         dirichlet_bcs=bcs, neumann_bcs=[], material_type="Elastic",
         material_params=[1000.0, 0.3], geometric_nonlinear=False,
@@ -340,9 +403,6 @@ def slice_run(torch, card, full_ref, preconditioner: str):
     """Phases 5 and 6: the path through FEMSystem with ``preconditioner``.
     Returns its launch counts."""
     from femcy_tpu_torch import FEMSystem, LinearIsotropic, SolverConfig
-    from femcy_tpu_torch.kernels import dia_spmv as k_spmv
-    from femcy_tpu_torch.kernels import structured_accumulate as k_acc
-    from femcy_tpu_torch.kernels import structured_fused as k_fused
     from femcy_tpu_torch.meshgen import box_tets
     from femcy_tpu_torch.solvers.dia import dia_spmv
 
@@ -362,9 +422,7 @@ def slice_run(torch, card, full_ref, preconditioner: str):
           f"{mesh.n_nodes} nodes, {mesh.n_dof} dofs; FEMSystem setup "
           f"{setup_s:.3f} s", flush=True)
 
-    k_spmv.spmv.launches = 0
-    k_acc.accumulate.launches = 0
-    k_fused.fused_assemble.launches = 0
+    zero_launches()
     t = time.perf_counter()
     report = system.solve(inp)
     strain, stress, mises = system.compute_strain_stress()
@@ -372,9 +430,7 @@ def slice_run(torch, card, full_ref, preconditioner: str):
     nodal = system.extrapolate(mises)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t
-    launches = {"dia_spmv": k_spmv.spmv.launches,
-                "structured_accumulate": k_acc.accumulate.launches,
-                "structured_fused": k_fused.fused_assemble.launches}
+    launches = read_launches()
     iters = system._last_cg_iters
     timing = system.timer.summary()
     print(f"{preconditioner} slice on {card}: first solve of the process "
@@ -392,6 +448,8 @@ def slice_run(torch, card, full_ref, preconditioner: str):
           f"{report.n_increments} assemblies")
     check(launches["structured_accumulate"] == 0,
           "P2 launched on the isotropic default path")
+    check(launches["ell_scatter"] == launches["ell_spmv"] == 0,
+          f"general-path kernels launched on the box: {launches}")
     if mg:
         # every V-cycle smooths levels 0..L-2 with 2 * smooth_steps
         # operator applications plus one residual each; the PCG runs one
@@ -421,32 +479,14 @@ def slice_run(torch, card, full_ref, preconditioner: str):
     err = float(np.abs(values.cpu().numpy() - full_ref).max()
                 / np.abs(full_ref).max())
     check(err <= 1e-12, f"assembled operator vs analytic: {err:.3e}")
-    # the solution against the eliminated system, with the plain SpMV
-    fixed_d, sval_d = system._last_dirichlet
-    values_bc, rhs_bc, _ = system._linear_system(
-        torch.zeros_like(system.dof), fixed_d, sval_d)
-    res = float((dia_spmv(values_bc, system.dia.offsets, system.dof)
-                 - rhs_bc).abs().max())
-    bmax = float(rhs_bc.abs().max())
-    check(res <= system.config.cg_eps * bmax,
-          f"||Ax-b||_inf {res:.3e} > cg_eps*||b||_inf "
-          f"{system.config.cg_eps * bmax:.3e}")
-    # The prescribed ux of the top face.  Like femcy_tpu, the port leaves
-    # the eliminated rows (unit diagonal, right-hand side 0.01) to the CG,
-    # so they hold 0.01 only to within the CG's residual on those rows:
-    # |ux - 0.01| = |r_i| <= ||Ax-b||_inf, not bit for bit.
-    _, top = z_faces(mesh)
-    check(bool((rhs_bc[top * 3] == 0.01).all()),
-          "prescribed displacement not in the eliminated right-hand side")
-    ux_err = float((system.dof[top * 3] - 0.01).abs().max())
-    check(ux_err <= res, f"prescribed ux off by {ux_err:.3e} > ||Ax-b||_inf "
-          f"{res:.3e}")
+    res, bmax, ux_err = solution_checks(
+        torch, system, mesh, lambda v, x: dia_spmv(v, system.dia.offsets, x))
     print(f"{preconditioner} slice checks: operator rel err {err:.3e}, "
           f"||Ax-b||_inf/||b||_inf {res / bmax:.3e} (cg_eps "
           f"{system.config.cg_eps}), prescribed ux off by {ux_err:.3e} "
           f"(||Ax-b||_inf {res:.3e}), max mises {float(mises.max()):.6g}, "
           f"energy {energy:.6g}", flush=True)
-    del values, values_bc
+    del values
 
     t = time.perf_counter()
     system.solve(inp)
@@ -485,6 +525,354 @@ def small_box_check(torch, dims, preconditioner: str):
           f"direct solve rel err {rel:.3e}", flush=True)
 
 
+def clamp_bottom(mesh):
+    fixed = np.zeros(mesh.n_dof, bool)
+    bottom, _ = z_faces(mesh)
+    for d in range(3):
+        fixed[bottom * 3 + d] = True
+    return fixed
+
+
+def general_kernel_checks(torch, card, results):
+    """Phase 7.  Returns the f64 host CSR operator of the ELL slice's
+    mesh."""
+    from femcy_tpu_torch import assembly
+    from femcy_tpu_torch.assembly_host import assemble_csr_host
+    from femcy_tpu_torch.bc import apply_dirichlet_linear
+    from femcy_tpu_torch.kernels import ell_scatter as k_scat
+    from femcy_tpu_torch.kernels import ell_spmv as k_ell
+    from femcy_tpu_torch.materials import LinearIsotropic
+    from femcy_tpu_torch.meshgen import unstructured_box_tets
+    from femcy_tpu_torch.solvers.cg import ell_spmv
+    from femcy_tpu_torch.topology import build_pattern
+
+    mat = LinearIsotropic(1000.0, 0.3)
+    out = None
+    for nx in UNSTRUCT:
+        mesh = unstructured_box_tets(nx)
+        t = time.perf_counter()
+        pattern = build_pattern(mesh)
+        t_pattern = time.perf_counter() - t
+        t = time.perf_counter()
+        K = assemble_csr_host(mesh, pattern, mat.C)
+        t_host = time.perf_counter() - t
+        t = time.perf_counter()
+        plan = k_scat.build_scatter_plan(pattern, DEVICE)
+        t_plan = time.perf_counter() - t
+        print(f"general kernels: unstructured_box_tets({nx}): {mesh.n_elements} "
+              f"elements, {mesh.n_dof} dofs, ELL width {pattern.width}; host "
+              f"pattern {t_pattern:.3f} s, f64 host operator {t_host:.3f} s, "
+              f"scatter map {t_plan:.3f} s", flush=True)
+        fixed = torch.as_tensor(clamp_bottom(mesh), device=DEVICE)
+        colidx = torch.as_tensor(pattern.colidx.astype(np.int64), device=DEVICE)
+        diag_slot = torch.as_tensor(pattern.diag_slot, device=DEVICE)
+        splan = k_ell.spmv_plan(pattern, DEVICE)
+        x_np = np.random.default_rng(2).standard_normal(mesh.n_dof)
+        for dtype in (torch.float32, torch.float64):
+            name = str(dtype).split(".")[1]
+            tol = TOL[name]
+
+            def dev(a):
+                return torch.as_tensor(np.asarray(a), dtype=dtype, device=DEVICE)
+
+            nodes = dev(mesh.nodes)
+            elements = torch.as_tensor(mesh.elements.astype(np.int64),
+                                       device=DEVICE)
+            dsdx, vol = assembly.gradients_and_volume(
+                nodes, elements, dev(mesh.element.dshape_at_gp),
+                dev(mesh.element.gauss_weights))
+            Ke = assembly.element_stiffness(dsdx, vol, dev(mat.C))
+            del dsdx, vol
+
+            # M1: the deterministic scatter
+            v_k = k_scat.scatter(Ke, plan)
+            v_p = k_scat.scatter_plain(Ke, plan)
+            torch.cuda.synchronize()
+            abs1 = float((v_k - v_p).abs().max())
+            rel1 = abs1 / float(v_p.abs().max())
+            check(rel1 <= tol, f"M1 vs plain {nx} {name}: {rel1:.3e}")
+            check(torch.equal(v_k, k_scat.scatter(Ke, plan)),
+                  f"M1 {nx} {name}: rerun not bit-identical")
+            v_np = v_k.double().cpu().numpy()
+            check(not v_np[~pattern.valid].any(), "M1 left padding nonzero")
+            rel1h = float(np.abs(v_np.reshape(-1)[pattern.csr_slots] - K.data).max()
+                          / np.abs(K.data).max())
+            # in float32 this reading is the f32 element math on jittered
+            # tets (Ke is computed in the working dtype), not the scatter's
+            if dtype == torch.float64:
+                check(rel1h <= tol, f"M1 vs host operator {nx}: {rel1h:.3e}")
+            del v_p, v_np
+
+            # M2: the ELL SpMV on the eliminated operator
+            vals, _ = apply_dirichlet_linear(
+                v_k, colidx, diag_slot, torch.zeros(mesh.n_dof, dtype=dtype,
+                                                    device=DEVICE),
+                fixed, torch.zeros(mesh.n_dof, dtype=dtype, device=DEVICE))
+            x = dev(x_np)
+            vt = k_ell.prep_values(splan, vals)
+            y_k = k_ell.spmv(splan, vt, x)
+            y_p = ell_spmv(vals, colidx, x)
+            torch.cuda.synchronize()
+            abs2 = float((y_k - y_p).abs().max())
+            rel2 = abs2 / float(y_p.abs().max())
+            check(rel2 <= tol, f"M2 vs plain {nx} {name}: {rel2:.3e}")
+            print(f"general kernels ({nx}) {name}: M1 rel err {rel1:.3e} vs "
+                  f"plain, {rel1h:.3e} vs host f64 (gated in float64 only), "
+                  f"bit-identical rerun; M2 "
+                  f"rel err {rel2:.3e} vs plain (tol {tol:.0e})", flush=True)
+
+            if nx == UNSTRUCT[-1]:
+                ms1, pms1 = in_turns(lambda: k_scat.scatter_plain(Ke, plan),
+                                     lambda: k_scat.scatter(Ke, plan), 3, 10)
+                ms2, pms2 = in_turns(lambda: ell_spmv(vals, colidx, x),
+                                     lambda: k_ell.spmv(splan, vt, x), 20, 50)
+                print(f"timing unstructured_box_tets({nx}) {name} on {card}: "
+                      f"M1 ell_scatter kernel {ms1:.4f} ms, plain {pms1:.4f} ms;"
+                      f" M2 ell_spmv kernel {ms2:.4f} ms, plain {pms2:.4f} ms",
+                      flush=True)
+                results[name]["ell_scatter"] = (abs1, ms1, pms1)
+                results[name]["ell_spmv"] = (abs2, ms2, pms2)
+                out = K
+            del Ke, v_k, vals, vt, nodes
+        del plan, splan, colidx, diag_slot
+        torch.cuda.empty_cache()
+    return out
+
+
+def solution_checks(torch, system, mesh, plain_spmv):
+    """||A x - b||_inf against cg_eps * ||b||_inf with the plain SpMV of
+    the layout, and the prescribed ux of the top face within the residual
+    of its rows.  Returns (residual, ||b||_inf, ux error)."""
+    fixed_d, sval_d = system._last_dirichlet
+    values_bc, rhs_bc, _ = system._linear_system(
+        torch.zeros_like(system.dof), fixed_d, sval_d)
+    res = float((plain_spmv(values_bc, system.dof) - rhs_bc).abs().max())
+    bmax = float(rhs_bc.abs().max())
+    check(res <= system.config.cg_eps * bmax,
+          f"||Ax-b||_inf {res:.3e} > cg_eps*||b||_inf "
+          f"{system.config.cg_eps * bmax:.3e}")
+    # Like femcy_tpu, the port leaves the eliminated rows (unit diagonal,
+    # right-hand side 0.01) to the CG, so they hold 0.01 only to within the
+    # CG's residual on those rows: |ux - 0.01| = |r_i| <= ||Ax-b||_inf.
+    _, top = z_faces(mesh)
+    check(bool((rhs_bc[top * 3] == 0.01).all()),
+          "prescribed displacement not in the eliminated right-hand side")
+    ux_err = float((system.dof[top * 3] - 0.01).abs().max())
+    check(ux_err <= res, f"prescribed ux off by {ux_err:.3e} > ||Ax-b||_inf "
+          f"{res:.3e}")
+    return res, bmax, ux_err
+
+
+def general_slice_run(torch, card, mesh, layout: str, host_K):
+    """Phases 8 and 9: ``mesh`` through FEMSystem with the default config
+    on the card, which must pick ``layout``.  Returns the launch counts."""
+    from femcy_tpu_torch import FEMSystem, LinearIsotropic
+    from femcy_tpu_torch.kernels import ell_scatter as k_scat
+    from femcy_tpu_torch.solvers.cg import ell_spmv
+    from femcy_tpu_torch.solvers.dia import dia_spmv
+
+    mat = LinearIsotropic(1000.0, 0.3)
+    etype = "C3D8" if mesh.element.n_nodes == 8 else "C3D4"
+    inp = boundary_model(mesh, 0.01, etype)
+    t = time.perf_counter()
+    system = FEMSystem(mesh, mat, device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    phases = ", ".join(f"{k} {v:.3f} s" for k, v in system._init_seconds.items())
+    check(system.dtype == torch.float64, "default dtype is not float64")
+    check((system.dia is not None) == (layout == "dia")
+          and system.pattern is not None, f"layout is not {layout}")
+    shape = (f"DIA, K = {system.dia.n_offsets}" if layout == "dia"
+             else f"ELL, width {system.pattern.width}")
+    print(f"{layout} slice: {mesh.n_elements} {etype} elements, {mesh.n_nodes} "
+          f"nodes, {mesh.n_dof} dofs, {shape}; FEMSystem init {init_s:.3f} s "
+          f"({phases})", flush=True)
+
+    zero_launches()
+    t = time.perf_counter()
+    report = system.solve(inp)
+    strain, stress, mises = system.compute_strain_stress()
+    energy = system.elastic_energy()
+    nodal = system.extrapolate(mises)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t
+    launches = read_launches()
+    iters = system._last_cg_iters
+    timing = system.timer.summary()
+    print(f"{layout} slice on {card}: first solve: assembly+bc "
+          f"{timing['assemble+bc']['first']:.4f} s, CG {iters} iterations in "
+          f"{timing['linear_solve']['first']:.4f} s, solve+post-processing "
+          f"{total_s:.4f} s; launches {launches}", flush=True)
+
+    E, G, npe = mesh.n_elements, mesh.element.n_gp, mesh.element.n_nodes
+    check(report.success, "solve reported failure")
+    check(iters > 0, "the CG path did not run")
+    check(launches["ell_scatter"] == report.n_increments,
+          f"M1 launched {launches['ell_scatter']} times for "
+          f"{report.n_increments} assemblies")
+    spmv_kernel = "dia_spmv" if layout == "dia" else "ell_spmv"
+    other = "ell_spmv" if layout == "dia" else "dia_spmv"
+    check(launches[spmv_kernel] == iters,
+          f"{spmv_kernel} launched {launches[spmv_kernel]} times for {iters} "
+          "CG iterations")
+    check(launches[other] == launches["structured_accumulate"]
+          == launches["structured_fused"] == 0,
+          f"a kernel of another path launched: {launches}")
+    check(tuple(system.dof.shape) == (mesh.n_dof,), "dof shape")
+    check(tuple(stress.shape) == (E, G, 3, 3), "stress shape")
+    check(tuple(strain.shape) == (E, G, 3, 3), "strain shape")
+    check(tuple(mises.shape) == (E, G), "mises shape")
+    check(tuple(nodal.shape) == (E, npe), "extrapolation shape")
+    for name, t_ in (("dof", system.dof), ("stress", stress), ("mises", mises),
+                     ("nodal", nodal)):
+        check(bool(torch.isfinite(t_).all()), f"{name} not finite")
+    check(np.isfinite(energy) and energy > 0.0, f"energy {energy}")
+
+    # the operator against the f64 host operator, and M1 rerun bit for bit
+    values = system._assemble_values()
+    check(torch.equal(values, system._assemble_values()),
+          "M1 rerun on the slice not bit-identical")
+    v_np = values.cpu().numpy()
+    if layout == "dia":
+        diff = system.dia.to_scipy(v_np) - host_K
+        err = float(abs(diff).max() / np.abs(host_K.data).max())
+        plain = k_scat.scatter_plain(
+            system._element_stiffness(), system._scatter_plan)
+        err_plain = float((values - plain).abs().max() / plain.abs().max())
+        check(err_plain <= TOL["float64"],
+              f"M1 (DIA slots) vs plain: {err_plain:.3e}")
+        extra = f", M1 vs plain {err_plain:.3e}"
+        del plain
+
+        def plain_spmv(v, x):
+            return dia_spmv(v, system.dia.offsets, x)
+    else:
+        err = float(np.abs(v_np.reshape(-1)[system.pattern.csr_slots]
+                           - host_K.data).max() / np.abs(host_K.data).max())
+        extra = ""
+        colidx = system._arrs["colidx"]
+
+        def plain_spmv(v, x):
+            return ell_spmv(v, colidx, x)
+    check(err <= TOL["float64"], f"assembled operator vs host f64: {err:.3e}")
+    del values, v_np
+    res, bmax, ux_err = solution_checks(torch, system, mesh, plain_spmv)
+    # the layout's SpMV kernel (P1 on DIA, M2 on ELL) on this slice's own
+    # eliminated operator, against its plain version
+    values_bc, _, _ = system._linear_system(
+        torch.zeros_like(system.dof), *system._last_dirichlet)
+    prep, apply_fn = system._spmv
+    x = torch.as_tensor(np.random.default_rng(5).standard_normal(mesh.n_dof),
+                        dtype=values_bc.dtype, device=DEVICE)
+    y_p = plain_spmv(values_bc, x)
+    err_spmv = float((apply_fn(prep(values_bc), x) - y_p).abs().max()
+                     / y_p.abs().max())
+    check(err_spmv <= TOL["float64"],
+          f"{spmv_kernel} vs plain on the slice's operator: {err_spmv:.3e}")
+    del values_bc, x, y_p
+    print(f"{layout} slice checks: operator rel err {err:.3e} vs the f64 host "
+          f"operator{extra}, {spmv_kernel} kernel vs plain on the eliminated "
+          f"operator {err_spmv:.3e} (tol {TOL['float64']:.0e}), M1 rerun "
+          f"bit-identical, ||Ax-b||_inf/||b||_inf "
+          f"{res / bmax:.3e} (cg_eps {system.config.cg_eps}), prescribed ux "
+          f"off by {ux_err:.3e} (||Ax-b||_inf {res:.3e}), max mises "
+          f"{float(mises.max()):.6g}, energy {energy:.6g}", flush=True)
+
+    t = time.perf_counter()
+    system.solve(inp)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t
+    warm = system.timer.summary()
+    print(f"{layout} slice warm solve on {card}: assembly+bc "
+          f"{warm['assemble+bc']['steady_min']:.4f} s, CG "
+          f"{system._last_cg_iters} iterations in "
+          f"{warm['linear_solve']['steady_min']:.4f} s, solve {warm_s:.4f} s; "
+          f"Timer {warm}", flush=True)
+    del system
+    torch.cuda.empty_cache()
+    return launches
+
+
+def inp_text(mesh) -> str:
+    """``mesh`` (C3D4) as an Abaqus .inp: z=0 clamped, ux=0.01 on z=1, a
+    pressure of 2 on the x=max face through a *Surface of per-face-number
+    element sets."""
+    lines = ["*Heading", "chip_smoke general mesh", "*Node"]
+    lines += [f"{i + 1}, " + ", ".join(repr(float(c)) for c in p)
+              for i, p in enumerate(mesh.nodes)]
+    lines.append("*Element, type=C3D4")
+    lines += [f"{e + 1}, " + ", ".join(str(int(n) + 1) for n in conn)
+              for e, conn in enumerate(mesh.elements)]
+    x = mesh.nodes[:, 0]
+    faces = {}
+    for e, conn in enumerate(mesh.elements):
+        for k, facets in enumerate(mesh.element.inp_surface_num):
+            nodes = [int(conn[ln]) for f in facets for ln in f]
+            if (x[nodes] > x.max() - 1e-9).all():
+                faces.setdefault(k + 1, []).append(e + 1)
+    bottom, top = z_faces(mesh)
+    for name, ids in (("bot", bottom), ("top", top)):
+        lines += [f"*Nset, nset={name}, instance=a",
+                  ", ".join(str(i + 1) for i in ids)]
+    for k, eles in faces.items():
+        lines += [f"*Elset, elset=_x{k}, internal, instance=a",
+                  ", ".join(str(e) for e in eles)]
+    lines.append("*Surface, type=ELEMENT, name=xload")
+    lines += [f"_x{k}, S{k}" for k in faces]
+    lines += ["*Material, name=m", "*Elastic", "1000., 0.3",
+              "*Step, name=s, nlgeom=NO", "*Static", "1., 1., 1e-05, 1.",
+              "*Boundary", "bot, 1, 1", "bot, 2, 2", "bot, 3, 3",
+              "top, 1, 1, 0.01", "*Dsload", "xload, P, 2.", "*End Step"]
+    return "\n".join(lines) + "\n"
+
+
+def inp_run(torch):
+    """Phase 10: the user's entry point on a general .inp model."""
+    import tempfile
+
+    from femcy_tpu_torch import (
+        FEMesh,
+        FEMSystem,
+        SolverConfig,
+        material_from_inp,
+        read_inp,
+    )
+    from femcy_tpu_torch.meshgen import unstructured_box_tets
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/general.inp"
+        with open(path, "w") as f:
+            f.write(inp_text(unstructured_box_tets(INP_NX)))
+        inp = read_inp(path)
+    check(len(inp.neumann_bcs) == 1 and len(inp.neumann_bcs[0].face_set) > 0,
+          ".inp model lost its *Dsload surface")
+    mat = material_from_inp(inp.material_type, inp.material_params,
+                            inp.element_type)
+    mesh = FEMesh(inp.nodes, inp.elements, inp.element)
+    dofs = {}
+    for solver, eps in (("direct", 1e-3), ("cg", 1e-10)):
+        s = FEMSystem(mesh, mat, inp.geometric_nonlinear, SolverConfig(
+            linear_solver=solver, cg_eps=eps), device=DEVICE)
+        check(s.dia is None, ".inp model did not take the ELL layout")
+        zero_launches()
+        check(s.solve(inp).success, f".inp {solver} solve")
+        torch.cuda.synchronize()
+        launches = read_launches()
+        check(launches["ell_scatter"] == 1, f".inp {solver}: M1 {launches}")
+        check(launches["ell_spmv"] == s._last_cg_iters
+              and (solver == "direct") == (s._last_cg_iters == 0),
+              f".inp {solver}: M2 {launches}, {s._last_cg_iters} iterations")
+        dofs[solver] = s.dof.cpu().numpy()
+        iters, m2 = s._last_cg_iters, launches["ell_spmv"]
+    rel = float(np.abs(dofs["cg"] - dofs["direct"]).max()
+                / np.abs(dofs["direct"]).max())
+    check(rel <= 1e-7, f".inp CG vs direct: {rel:.3e}")
+    print(f".inp model (unstructured_box_tets({INP_NX}), {mesh.n_elements} "
+          f"C3D4, {mesh.n_dof} dofs, *Dsload on {len(inp.neumann_bcs[0].face_set)}"
+          f" facets): CG (cg_eps 1e-10, {iters} iterations, M2 launched "
+          f"{m2} times) vs host direct solve rel err {rel:.3e}", flush=True)
+
+
 def main() -> int:
     card = card_line()
     print(card, flush=True)
@@ -510,6 +898,28 @@ def main() -> int:
     slice_run(torch, card, full_ref, "jacobi")
     small_box_check(torch, SMALL, "jacobi")
     launches["structured_accumulate"] = p2_launches
+    del full_ref
+
+    from femcy_tpu_torch.assembly_host import assemble_csr_host
+    from femcy_tpu_torch.materials import LinearIsotropic
+    from femcy_tpu_torch.meshgen import box_hexes, unstructured_box_tets
+    from femcy_tpu_torch.topology import build_pattern
+
+    host_K = general_kernel_checks(torch, card, results)
+    ell = general_slice_run(torch, card, unstructured_box_tets(UNSTRUCT[-1]),
+                            "ell", host_K)
+    del host_K
+    launches["ell_scatter"] = ell["ell_scatter"]
+    launches["ell_spmv"] = ell["ell_spmv"]
+    hexes = box_hexes(*HEX)
+    t = time.perf_counter()
+    hex_K = assemble_csr_host(hexes, build_pattern(hexes),
+                              LinearIsotropic(1000.0, 0.3).C)
+    print(f"general-DIA slice: f64 host operator of box_hexes{HEX} in "
+          f"{time.perf_counter() - t:.3f} s", flush=True)
+    general_slice_run(torch, card, hexes, "dia", hex_K)
+    del hex_K
+    inp_run(torch)
 
     source = {
         "dia_spmv": ("femcy_tpu_torch/csrc/dia_spmv.cu",
@@ -520,6 +930,12 @@ def main() -> int:
         "structured_fused": (
             "femcy_tpu_torch/csrc/structured_fused.cu",
             "femcy_tpu/kernels/structured_fused.py:217"),
+        # M1 and M2 replace XLA scatters and gathers, not Pallas kernels:
+        # the JAX function each one takes the place of
+        "ell_scatter": ("femcy_tpu_torch/csrc/ell_scatter.cu",
+                        "femcy_tpu/assembly.py:167"),
+        "ell_spmv": ("femcy_tpu_torch/csrc/ell_spmv.cu",
+                     "femcy_tpu/solvers/cg.py:20"),
     }
     rows = []
     for name, (src, replaces) in source.items():

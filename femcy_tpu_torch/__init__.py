@@ -2,14 +2,20 @@
 
 A second package beside ``femcy_tpu`` (the JAX reference, which it never
 imports).  It grows slice by slice (ROADMAP.md); what exists now is the
-structured-box linear static path: ``meshgen.box_tets`` -> ``FEMSystem``
--> DIA assembly from the node coordinates -> Dirichlet elimination ->
-direct solve, or PCG with a Jacobi, block-Jacobi or geometric-multigrid
-preconditioner -> strain, stress, Mises, energy and extrapolation.  The
-three TPU kernels of the JAX package are rewritten by hand in CUDA for
-sm_90a (kernels/, csrc/): the DIA SpMV (every PCG iteration and multigrid
-level), the structured accumulate (the two-stage assembly) and the fused
-coordinates-to-DIA assembly (the isotropic default).
+linear static analysis of any mesh: ``read_inp`` or ``meshgen`` ->
+``FEMesh`` -> ``material_from_inp`` -> ``FEMSystem`` -> assembly ->
+Dirichlet elimination -> direct solve or PCG -> strain, stress, Mises,
+energy and extrapolation.  A structured box (``meshgen.box_tets``)
+assembles from its node coordinates into the analytic DIA layout and
+solves with a Jacobi, block-Jacobi or geometric-multigrid PCG; any other
+mesh goes through the ELL pattern (native C++ code, native/) and, where its
+offsets are bounded, the general DIA layout, with a Jacobi (or, on DIA,
+block-Jacobi) PCG.  The three TPU kernels of the JAX package are
+rewritten by hand in CUDA for sm_90a (kernels/, csrc/): the DIA SpMV
+(every DIA PCG iteration and multigrid level), the structured accumulate
+(the two-stage box assembly) and the fused coordinates-to-DIA assembly
+(the isotropic box default); so are the general path's deterministic
+stiffness scatter and ELL SpMV.
 
 Tensors live on the device given to ``FEMSystem`` (no auto-detection) in
 float64 by default; ``FEMCY_TPU_X64=0`` selects float32, as in femcy_tpu.

@@ -1,11 +1,12 @@
 """Element kinematics and element stiffness as batched torch ops.
 
-Torch counterpart of the parts of ``femcy_tpu.assembly`` that the
-structured linear slice runs: shape gradients and volumes, the B matrix,
-B^T C B per element, the deformation gradient and the per-Gauss-point
-stress and energy density.  Every function is a plain function of tensors
-and keeps its inputs' dtype and device.  The scatters of the general ELL
-path come with that slice.
+Torch counterpart of the parts of ``femcy_tpu.assembly`` that the linear
+slices run: shape gradients and volumes, the B matrix, B^T C B per element,
+the plain element-stiffness scatters of the general (ELL) path, the
+deformation gradient and the per-Gauss-point stress and energy density.
+Every function is a plain function of tensors and keeps its inputs' dtype
+and device.  On CUDA the general path scatters through the deterministic
+kernel of kernels/ell_scatter.py instead of the indexed adds here.
 """
 
 from __future__ import annotations
@@ -69,7 +70,7 @@ def b_matrix(dsdx):
 
 
 def element_stiffness(dsdx, vol, C, layout: str = "eij"):
-    """Ke = sum_gp B^T C B * vol -> (E, edof, edof).
+    """Ke = sum_gp B^T C B * vol -> (E, edof, edof), contiguous.
 
     layout="ije" gives (edof, edof, E): the structured assembly reads Ke one
     (row-dof, col-dof) plane at a time, and in this layout each plane is a
@@ -83,7 +84,52 @@ def element_stiffness(dsdx, vol, C, layout: str = "eij"):
     Ke = torch.einsum("egai,egaj,eg->eij", B, CB, vol)
     if layout == "ije":
         return Ke.permute(1, 2, 0).contiguous()
-    return Ke
+    return Ke.contiguous()
+
+
+def scatter_stiffness(Ke, scatter_targets, n_dof: int, width: int):
+    """Element stiffnesses (E, edof, edof) -> padded ELL values
+    (n_dof, width) by one indexed add over the dof-level targets, in Ke
+    layout order."""
+    flat = Ke.new_zeros(n_dof * width)
+    flat.index_add_(0, scatter_targets, Ke.reshape(-1))
+    return flat.reshape(n_dof, width)
+
+
+def expand_block_targets(block_targets, node_width: int, dm: int, width: int,
+                         npe: int):
+    """NODE-block scatter map (E*npe*npe,) -> dof-level (E*edof*edof,), in
+    Ke layout order.
+
+    Contribution (e, a, di, b, dj) goes to (n*dm+di)*width + pos*dm + dj
+    where block_targets[e, a, b] = n*node_width + pos.  Ke's flat order is
+    k = (a*dm+di)*edof + (b*dm+dj); for each k the base entry is (a, b) and
+    the in-block offset di*width + dj, so the expansion is one gather of
+    the (E, npe*npe) base table by a static (edof*edof,) index plus a
+    static offset.
+    """
+    bt = block_targets.reshape(-1, npe * npe).long()
+    n = bt // node_width
+    pos = bt % node_width
+    base = (n * dm) * width + pos * dm  # (E, npe*npe)
+    edof = npe * dm
+    k = torch.arange(edof * edof, device=bt.device)
+    a = k // (dm * edof)
+    di = (k // edof) % dm
+    b = (k % edof) // dm
+    dj = k % dm
+    return (base[:, a * npe + b] + (di * width + dj)[None, :]).reshape(-1)
+
+
+def scatter_stiffness_blocks(Ke, block_targets, n_dof: int, width: int,
+                             node_width: int, dm: int):
+    """scatter_stiffness driven by the compact node-block map: the plain
+    version of the scatter kernel's ELL route (kernels/ell_scatter.py)."""
+    E, edof, _ = Ke.shape
+    targets = expand_block_targets(
+        block_targets, node_width, dm, width, edof // dm
+    )
+    return scatter_stiffness(Ke, targets, n_dof, width)
 
 
 def deformation_gradient(dof, elements, dsdX0):

@@ -1,10 +1,10 @@
 """Boundary conditions: Dirichlet masks and precomputed Neumann patterns.
 
-Counterpart of ``femcy_tpu.bc`` for the structured slice.  The Dirichlet
+Counterpart of ``femcy_tpu.bc`` for the linear slices.  The Dirichlet
 masks and the unit Neumann patterns are built once on the host in numpy,
-exactly as in the JAX package; ``pin_dof`` is the one device op.  The
-elimination itself happens on the DIA layout (solvers/dia.py); the ELL
-variants come with the general slice.
+exactly as in the JAX package.  The elimination runs on the device: on the
+ELL layout here (``apply_dirichlet_linear``), on the DIA layout in
+solvers/dia.py.  The Newton variant comes with the Newton slice.
 
 Neumann: the facet geometry is evaluated on the *initial* configuration and
 the load enters linearly, so one unit nodal force pattern per ``*Dsload``
@@ -62,6 +62,30 @@ def build_dirichlet_arrays(
         else:
             sval[idx] = bc.value * load_ratio
     return fixed, sval
+
+
+def apply_dirichlet_linear(values, colidx, diag_slot, rhs, fixed, sval):
+    """Symmetric zero-one elimination for the linear solve on the ELL
+    layout: prescribed-value couplings move to the rhs
+    (ref: stiffnessMtrx.py:293-298), fixed rows and columns are zeroed and
+    their diagonal set to 1 (ref: stiffnessMtrx.py:300-307).
+
+    values : (n_dof, W) ELL stiffness values
+    colidx : (n_dof, W) int64 column ids (padding points at col 0 and holds
+    value 0, so it stays 0 and adds nothing to the rhs)
+    diag_slot : (n_dof,) int64 flat slot of each row's diagonal
+    rhs, sval : (n_dof,), fixed : (n_dof,) bool
+
+    Returns new (values, rhs); the inputs are not modified.
+    """
+    col_fixed = fixed[colidx]  # (n_dof, W)
+    zero = values.new_zeros(())
+    rhs = rhs - torch.where(col_fixed, values * sval[colidx], zero).sum(dim=1)
+    rhs = torch.where(fixed, sval, rhs)
+    values = torch.where(col_fixed | fixed[:, None], zero, values)
+    flat = values.view(-1)
+    flat[diag_slot] = torch.where(fixed, values.new_ones(()), flat[diag_slot])
+    return values, rhs
 
 
 def pin_dof(dof, fixed, sval):

@@ -17,8 +17,6 @@ import dataclasses
 
 #: (field, predicate on its value, the later slice that implements it)
 _LATER = (
-    ("sparse_format", lambda v: v == "ell",
-     "the general ELL layout (ROADMAP slice B)"),
     ("dense_operator_max_dof", lambda v: v != 0,
      "the dense small-model CG (ROADMAP slice G)"),
     ("preconditioner", lambda v: v == "amg",
@@ -70,11 +68,12 @@ class SolverConfig:
     sparse_format: str = "auto"
     #: max distinct column offsets for the DIA layout to be considered
     dia_max_offsets: int = 1024
-    #: SpMV inside the DIA CG: "auto" and "pallas" run the hand-written
-    #: Hopper kernel (kernels/dia_spmv.py) on CUDA tensors, in any dtype
-    #: and at any size; "slices" is an explicit request for the plain
-    #: torch shifted-slice SpMV.  On CPU tensors every value runs the plain
-    #: version.
+    #: SpMV inside the CG: "auto" and "pallas" run the hand-written Hopper
+    #: kernel on CUDA tensors (kernels/dia_spmv.py on the DIA layout,
+    #: kernels/ell_spmv.py on the ELL layout), in any dtype and at any
+    #: size; "slices" is an explicit request for the plain torch SpMV
+    #: (shifted slices on DIA, the row gather on ELL).  On CPU tensors every
+    #: value runs the plain version.
     spmv: str = "auto"
     #: small-model dense CG: when 0 < n_dof <= this, on-device CG solves
     #: run with the operator scattered to a DENSE (n, n) matrix -- the

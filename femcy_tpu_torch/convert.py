@@ -18,6 +18,8 @@ from femcy_tpu_torch import materials
 from femcy_tpu_torch.elements import ELEMENT_REGISTRY
 from femcy_tpu_torch.io.inp import DirichletBC, InpModel, NeumannBC
 from femcy_tpu_torch.mesh import FEMesh
+from femcy_tpu_torch.solvers.dia import DIAPattern
+from femcy_tpu_torch.topology import ELLPattern
 
 _ELEMENT_BY_NAME = {e.name: e for e in ELEMENT_REGISTRY.values()}
 
@@ -74,6 +76,31 @@ def material_from(ref_material) -> materials.Material:
         if f.init
     }
     return cls(**params)
+
+
+def _array_or_none(a):
+    return None if a is None else np.array(a)
+
+
+def ell_pattern_from(ref_pattern) -> ELLPattern:
+    """ELLPattern with copies of the reference pattern's arrays (numpy)."""
+    return ELLPattern(**{
+        f.name: (getattr(ref_pattern, f.name)
+                 if f.name in ("n_dof", "width", "node_width")
+                 else _array_or_none(getattr(ref_pattern, f.name)))
+        for f in dataclasses.fields(ELLPattern)
+    })
+
+
+def dia_pattern_from(ref_dia) -> DIAPattern:
+    """DIAPattern with the reference pattern's offsets and a copy of its
+    scatter map (None on the analytic structured pattern)."""
+    return DIAPattern(
+        n_dof=int(ref_dia.n_dof),
+        offsets=tuple(int(o) for o in ref_dia.offsets),
+        diag_idx=int(ref_dia.diag_idx),
+        scatter_targets=_array_or_none(ref_dia.scatter_targets),
+    )
 
 
 def dof_from(dof, device="cpu", dtype=torch.float64) -> torch.Tensor:

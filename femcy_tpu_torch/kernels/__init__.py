@@ -1,11 +1,17 @@
-"""Hand-written CUDA kernels for Hopper, one module per TPU kernel they
-replace (femcy_tpu/kernels/).  Sources live in ../csrc; _build compiles
-them at first use.  Each wrapper runs its plain torch version for CPU
-tensors and its kernel for CUDA tensors, and counts its kernel launches in
-``<wrapper>.launches``:
+"""Hand-written CUDA kernels for Hopper.  Sources live in ../csrc; _build
+compiles them at first use.  Each wrapper runs its plain torch version for
+CPU tensors and its kernel for CUDA tensors, and counts its kernel
+launches in ``<wrapper>.launches``.
 
-- dia_spmv.spmv                       <- femcy_tpu/kernels/dia_spmv.py
-- structured_accumulate.accumulate    <- femcy_tpu/kernels/structured_accumulate.py
+The three TPU kernels of femcy_tpu/kernels/:
 
-femcy_tpu/kernels/structured_fused.py has no counterpart yet (ROADMAP).
+- dia_spmv.spmv                       <- femcy_tpu/kernels/dia_spmv.py (P1)
+- structured_accumulate.accumulate    <- femcy_tpu/kernels/structured_accumulate.py (P2)
+- structured_fused.fused_assemble     <- femcy_tpu/kernels/structured_fused.py (P3)
+
+and the device ops that carry the general (ELL) path, which the JAX
+package leaves to XLA's scatter and gather:
+
+- ell_scatter.scatter   <- assembly.scatter_stiffness_blocks / solvers/dia.dia_scatter (M1)
+- ell_spmv.spmv         <- solvers/cg.ell_spmv (M2)
 """

@@ -1,0 +1,108 @@
+"""ELL SpMV on Hopper: the wrapper of csrc/ell_spmv.cu (M2).
+
+Replaces the gather SpMV of ``femcy_tpu/solvers/cg.py`` (``ell_spmv``,
+:20-27) in the Jacobi-PCG of the general ELL layout: y = A x with
+``A[r, colidx[r, w]] = values[r, w]``, read from (W, n) transposed
+operands -- the values made once per solve (``prep_values``), the column
+ids and row counts once per pattern (``spmv_plan``).
+
+``spmv`` launches the kernel for CUDA tensors and raises if it cannot; for
+CPU tensors, and only for them, it runs the plain version
+(``solvers.cg.ell_spmv``).  ``spmv.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import numpy as np
+import torch
+
+from femcy_tpu_torch.kernels import _build
+from femcy_tpu_torch.solvers.cg import ell_spmv
+from femcy_tpu_torch.topology import ELLPattern
+
+_ENTRY = {torch.float32: "femcy_ell_spmv_f32", torch.float64: "femcy_ell_spmv_f64"}
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_void_p]
+
+
+@dataclasses.dataclass(frozen=True)
+class EllSpmvPlan:
+    n: int
+    width: int
+    #: (width, n) int32 column ids, transposed, on the operand's device
+    colidx_t: torch.Tensor
+    #: (n,) int32 valid slots per row
+    row_counts: torch.Tensor
+
+
+def spmv_plan(pattern: ELLPattern, device) -> EllSpmvPlan:
+    """The transposed column ids and the row counts of ``pattern``, on
+    ``device`` (once per pattern)."""
+    if pattern.n_dof * pattern.width >= 2**31:
+        raise ValueError("ELL SpMV operands past 2^31 slots are not supported")
+    colidx_t = np.ascontiguousarray(pattern.colidx.T, dtype=np.int32)
+    return EllSpmvPlan(
+        n=pattern.n_dof,
+        width=pattern.width,
+        colidx_t=torch.as_tensor(colidx_t, device=device),
+        row_counts=torch.as_tensor(
+            np.asarray(pattern.row_counts, dtype=np.int32), device=device),
+    )
+
+
+def prep_values(plan: EllSpmvPlan, values):
+    """(n, W) row-major values -> (W, n) contiguous transposed operand: one
+    pass over the values, amortised over every CG iteration of a solve."""
+    if values.shape != (plan.n, plan.width):
+        raise ValueError(
+            f"values shape {tuple(values.shape)} != ({plan.n}, {plan.width})"
+        )
+    return values.t().contiguous()
+
+
+def spmv(plan: EllSpmvPlan, values_t, x):
+    """y = A @ x on the transposed ELL operand."""
+    W, n = plan.width, plan.n
+    if values_t.shape != (W, n) or x.shape != (n,):
+        raise ValueError(
+            f"expected values_t ({W}, {n}) and x ({n},), got "
+            f"{tuple(values_t.shape)} and {tuple(x.shape)}"
+        )
+    if values_t.dtype != x.dtype or x.dtype not in _ENTRY:
+        raise TypeError(
+            f"values_t and x must share float32 or float64, got "
+            f"{values_t.dtype} and {x.dtype}"
+        )
+    if not (values_t.device == x.device == plan.colidx_t.device):
+        raise ValueError(
+            f"values_t, x and the plan must share a device, got "
+            f"{values_t.device}, {x.device}, {plan.colidx_t.device}"
+        )
+    if not (values_t.is_contiguous() and x.is_contiguous()):
+        raise ValueError("values_t and x must be contiguous")
+    if x.device.type == "cpu":
+        return ell_spmv(values_t.t(), plan.colidx_t.t().long(), x)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+
+    fn = _build.entry(_ENTRY[x.dtype], _ARGTYPES)
+    y = torch.empty_like(x)
+    _build.launch(fn, x.device, "ell_spmv kernel launch", values_t.data_ptr(),
+                  plan.colidx_t.data_ptr(), plan.row_counts.data_ptr(),
+                  x.data_ptr(), y.data_ptr(), n)
+    spmv.launches += 1
+    return y
+
+
+spmv.launches = 0
+
+
+def make_spmv(pattern: ELLPattern, device):
+    """(prep, apply) pair for solvers.cg.pcg_solve."""
+    plan = spmv_plan(pattern, device)
+    return (
+        lambda values: prep_values(plan, values),
+        lambda values_t, x: spmv(plan, values_t, x),
+    )

@@ -1,0 +1,58 @@
+"""Jacobi-preconditioned conjugate gradient on the padded ELL layout.
+
+Torch counterpart of ``femcy_tpu.solvers.cg`` (``ell_spmv``,
+``pcg_solve``): the same algorithm and convergence rule as the reference,
+||r||_inf < eps * ||r0||_inf with eps defaulting to 1e-3
+(conjugateGradientSolver.py:15), at most n_dof iterations (:109).  The
+loop is the port's generic ``solvers.dia.pcg``.  ``ell_spmv`` here is the
+plain version of the SpMV; the CG on a CUDA device runs the hand-written
+kernel instead (kernels/ell_spmv.py), passed in as ``spmv``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from femcy_tpu_torch.solvers.dia import pcg
+
+
+def ell_spmv(values, colidx, x):
+    """y = A @ x on the padded ELL format: one row gather and a row sum.
+    Padding slots hold value 0, so their (column 0) gather adds nothing
+    (ref: conjugateGradientSolver.py:53-58)."""
+    return (values * x[colidx]).sum(dim=1)
+
+
+def pcg_solve(values, colidx, diag_slot, b, eps: float = 1.0e-3,
+              max_iters: int = 0, spmv=None):
+    """Solve A x = b with the Jacobi PCG.  Returns (x, iterations,
+    max|r|); ``max_iters <= 0`` means n.
+
+    ``diag_slot`` indexes each row's diagonal in the flattened values; the
+    preconditioner is M^-1 = 1/diag, 0 where the diagonal is 0
+    (ref: conjugateGradientSolver.py:48-51).
+
+    spmv: optional (prep, apply) pair (kernels.ell_spmv.make_spmv)
+    replacing the plain gather SpMV; ``prep(values)`` runs once per solve.
+    """
+    n = b.shape[0]
+    if max_iters <= 0:
+        max_iters = n
+    if spmv is not None:
+        prep, apply_fn = spmv
+        operand = prep(values)
+
+        def apply_a(d):
+            return apply_fn(operand, d)
+
+    else:
+        def apply_a(d):
+            return ell_spmv(values, colidx, d)
+
+    diag = values.reshape(-1)[diag_slot]
+    minv = torch.where(diag != 0.0, 1.0 / diag, torch.zeros_like(diag))
+
+    def apply_m(r):
+        return minv * r
+
+    return pcg(apply_a, apply_m, b, eps, max_iters)

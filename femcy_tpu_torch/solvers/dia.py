@@ -1,28 +1,31 @@
 """DIA (diagonal-offset) sparse format: pattern, SpMV, Dirichlet, PCG.
 
-Torch counterpart of ``femcy_tpu.solvers.dia`` for the structured slice.
-A matrix whose dof graph has a bounded set of distinct (col - row) offsets
-is stored by offset:
+Torch counterpart of ``femcy_tpu.solvers.dia``.  A matrix whose dof graph
+has a bounded set of distinct (col - row) offsets is stored by offset:
 
     A[r, r + off_k] = values[r, k]        k = 0..K-1, offsets static
 
 and y = A x is K statically shifted slices of x.  ``dia_spmv`` here is the
 plain torch version of that SpMV; the CG on a CUDA device runs the
 hand-written kernel instead (kernels/dia_spmv.py), passed in as ``spmv``.
-The general ELL-derived pattern (``build_dia_pattern``) and ``dia_scatter``
-come with the general slice.
+Two patterns exist: the analytic one of a structured box
+(``build_structured_dia_pattern``) and the general one derived from a
+mesh's ELL pattern (``build_dia_pattern``), whose assembly scatters into
+the DIA slots through kernels/ell_scatter.py (``dia_scatter`` here is
+femcy_tpu's plain form of that scatter).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from femcy_tpu_torch.linalg import det_small, inv_small
 from femcy_tpu_torch.mesh import FEMesh
+from femcy_tpu_torch.topology import ELLPattern, build_pattern
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,10 +35,32 @@ class DIAPattern:
     offsets: Tuple[int, ...]
     #: index of offset 0 (the diagonal) in ``offsets``
     diag_idx: int
+    #: scatter map: contribution (Ke layout order) -> flat (row * K + k)
+    #: slot; None until requested (:meth:`ensure_scatter_targets`), and
+    #: always None for the analytic structured pattern (its assembly writes
+    #: by offset and never scatters)
+    scatter_targets: Optional[np.ndarray] = None
+    #: the ELL pattern a general pattern was derived from
+    ell: Optional[ELLPattern] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     @property
     def n_offsets(self) -> int:
         return len(self.offsets)
+
+    def ensure_scatter_targets(self) -> np.ndarray:
+        """The dof-level scatter map into the DIA slots, derived from the
+        ELL pattern's on first use.  Only the plain ``dia_scatter`` reads
+        it; the device assembly goes through kernels/ell_scatter's
+        node-block plan."""
+        if self.scatter_targets is None:
+            if self.ell is None:
+                raise ValueError("pattern has no scatter map (structured)")
+            targets = ell_to_dia_slots(self.ell, self.offsets)[
+                self.ell.ensure_scatter_targets()]
+            dtype = np.int32 if self.n_dof * self.n_offsets < 2**31 else np.int64
+            object.__setattr__(self, "scatter_targets", targets.astype(dtype))
+        return self.scatter_targets
 
     @property
     def pad_lo(self) -> int:
@@ -102,7 +127,51 @@ def build_structured_dia_pattern(mesh: FEMesh) -> DIAPattern:
     )
 
 
+def ell_to_dia_slots(ell: ELLPattern, offsets) -> np.ndarray:
+    """(n_dof * width,) int64: the flat DIA slot (row * K + k) of each flat
+    ELL slot, -1 on padding slots.  ``offsets`` must hold every (col - row)
+    of the ELL pattern."""
+    offsets = np.asarray(offsets, dtype=np.int64)
+    rows = np.repeat(np.arange(ell.n_dof, dtype=np.int64), ell.row_counts)
+    offidx = np.searchsorted(offsets, ell.csr_indices.astype(np.int64) - rows)
+    ell2dia = np.full(ell.n_dof * ell.width, -1, dtype=np.int64)
+    ell2dia[ell.csr_slots] = rows * offsets.shape[0] + offidx
+    return ell2dia
+
+
+def build_dia_pattern(
+    mesh: FEMesh, max_offsets: int = 1024, ell: Optional[ELLPattern] = None
+) -> Optional[DIAPattern]:
+    """DIA pattern of a mesh from its ELL pattern, or None when the offset
+    set is larger than ``max_offsets``.  Its scatter map is left to
+    ``DIAPattern.ensure_scatter_targets``."""
+    ell = ell if ell is not None else build_pattern(mesh)
+    n_dof = ell.n_dof
+    rows = np.repeat(np.arange(n_dof), ell.row_counts)
+    offsets = np.unique(ell.csr_indices.astype(np.int64) - rows)
+    if offsets.shape[0] > max_offsets:
+        return None
+    diag_idx = int(np.searchsorted(offsets, 0))
+    if offsets[diag_idx] != 0:
+        return None  # a dof without a diagonal entry; shouldn't happen
+    return DIAPattern(
+        n_dof=n_dof,
+        offsets=tuple(int(o) for o in offsets),
+        diag_idx=diag_idx,
+        ell=ell,
+    )
+
+
 # --------------------------------------------------------------------------- #
+def dia_scatter(Ke, scatter_targets, n_dof: int, n_offsets: int):
+    """Element stiffness (E, edof, edof) -> DIA values (n_dof, K) by one
+    indexed add in contribution order over
+    ``DIAPattern.ensure_scatter_targets()`` (femcy_tpu's dia_scatter)."""
+    flat = Ke.new_zeros(n_dof * n_offsets)
+    flat.index_add_(0, scatter_targets, Ke.reshape(-1))
+    return flat.reshape(n_dof, n_offsets)
+
+
 def _shifted_columns(v, offsets: Tuple[int, ...]):
     """(n,) -> (n, K) with column k = v[r + off_k] (0 / False outside)."""
     n = v.shape[0]

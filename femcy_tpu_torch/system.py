@@ -1,28 +1,37 @@
-"""The equation system on the structured box: assembly + BCs + linear solve
-+ load stepping + post-processing.
+"""The equation system: assembly + BCs + linear solve + load stepping +
+post-processing.
 
-Torch counterpart of ``femcy_tpu.system.FEMSystem`` for its structured
-branch (meshes from ``meshgen.box_tets``) and the linear static analysis:
+Torch counterpart of ``femcy_tpu.system.FEMSystem`` for the linear static
+analysis of any mesh, in the JAX package's three layouts:
 
-- assembly goes from the node coordinates to the DIA layout through
-  ``structured.structured_assemble_coords``: on CUDA the fused kernel
-  (kernels/structured_fused, P3) for an isotropic material, else the prep
-  and the accumulate kernel (kernels/structured_accumulate, P2); on the
-  CPU their plain torch versions;
-- Dirichlet conditions are eliminated on the DIA layout;
+- a structured box (``meshgen.box_tets``, ``sparse_format`` "auto" or
+  "dia"): assembly goes from the node coordinates to the analytic DIA
+  layout through ``structured.structured_assemble_coords``; on CUDA the
+  fused kernel (kernels/structured_fused, P3) for an isotropic material,
+  else the prep and the accumulate kernel (kernels/structured_accumulate,
+  P2); on the CPU their plain torch versions;
+- any other mesh (or a box with ``sparse_format="ell"``): the ELL pattern
+  (topology.build_pattern, native C++ code), and the general DIA layout
+  when the mesh's offsets are bounded (``build_dia_pattern``, chosen
+  exactly as in femcy_tpu); element stiffnesses scattered into either
+  layout by the deterministic scatter kernel on CUDA (kernels/ell_scatter,
+  M1) or its plain indexed add on the CPU;
+- Dirichlet conditions are eliminated on the layout in use;
 - the linear solve is the host direct solve below ``direct_solve_max_dof``
-  dofs, the PCG above it: Jacobi, block-Jacobi or the geometric multigrid
-  V-cycle (solvers/multigrid, ``preconditioner="multigrid"``), whose SpMV
-  at every level but the coarsest is the DIA kernel (kernels/dia_spmv)
-  unless ``SolverConfig.spmv == "slices"``;
+  dofs, the PCG above it.  On DIA: Jacobi, block-Jacobi, or (boxes only)
+  the geometric multigrid V-cycle (solvers/multigrid), with the DIA SpMV
+  kernel (kernels/dia_spmv, P1); on ELL: the Jacobi PCG with the ELL SpMV
+  kernel (kernels/ell_spmv, M2) -- scalar Jacobi also under
+  ``preconditioner="block_jacobi"``, as in femcy_tpu.  ``spmv="slices"``
+  asks for the plain SpMV on either layout;
 - the adaptive load-stepping loop of ``solve`` is the JAX package's, with
   the linear branch of its increment.
 
 Every tensor lives on the ``device`` given to ``FEMSystem`` (``"cpu"`` or
 ``"cuda"``; asking for CUDA without a card raises) in one float dtype
-(float64 unless ``FEMCY_TPU_X64=0``, as in femcy_tpu).  Meshes without the
-box structure, geometric nonlinearity and the options listed in
-config._LATER raise NotImplementedError naming the slice that brings them.
+(float64 unless ``FEMCY_TPU_X64=0``, as in femcy_tpu).  Geometric
+nonlinearity (the Newton slice) and the options listed in config._LATER
+raise NotImplementedError naming the slice that brings them.
 """
 
 from __future__ import annotations
@@ -39,10 +48,15 @@ import torch
 from femcy_tpu_torch import assembly, bc as bc_mod
 from femcy_tpu_torch.config import SolverConfig
 from femcy_tpu_torch.io.inp import InpModel
+from femcy_tpu_torch.kernels import ell_spmv
 from femcy_tpu_torch.kernels.dia_spmv import make_spmv
+from femcy_tpu_torch.kernels.ell_scatter import build_scatter_plan, scatter
 from femcy_tpu_torch.materials import Material
 from femcy_tpu_torch.mesh import FEMesh
+from femcy_tpu_torch.solvers.cg import pcg_solve
 from femcy_tpu_torch.solvers.dia import (
+    DIAPattern,
+    build_dia_pattern,
     build_structured_dia_pattern,
     dia_dirichlet_linear,
     dia_pcg_solve,
@@ -53,6 +67,7 @@ from femcy_tpu_torch.structured import (
     build_structured_plan,
     structured_assemble_coords,
 )
+from femcy_tpu_torch.topology import ELLPattern, build_pattern
 from femcy_tpu_torch.utils.timing import Timer
 
 logger = logging.getLogger("femcy_tpu_torch")
@@ -91,7 +106,7 @@ class SolveReport:
 
 
 class FEMSystem:
-    """Assemble and solve one structured box body with one material.
+    """Assemble and solve one body with one material.
 
     Parameters mirror femcy_tpu.FEMSystem (mesh, material, geometric
     nonlinearity flag, config) plus the torch ``device`` that every tensor
@@ -108,13 +123,14 @@ class FEMSystem:
     ):
         if geometric_nonlinear:
             raise NotImplementedError(
-                "geometric_nonlinear=True needs the Newton path (ROADMAP "
-                "slice C and the structured Newton slice), not yet ported "
-                "to femcy_tpu_torch"
+                "geometric_nonlinear=True needs the Newton path on both "
+                "layouts (ROADMAP slice C, queue 1.1), not yet ported to "
+                "femcy_tpu_torch"
             )
         box = mesh.structure is not None and mesh.structure.get("kind") == "box_tets"
+        structured = box and config.sparse_format in ("auto", "dia")
         if config.preconditioner == "multigrid":
-            if not box:
+            if not structured:
                 raise ValueError(
                     "preconditioner='multigrid' needs a structured box_tets "
                     "mesh with the DIA layout (e.g. meshgen.box_tets)"
@@ -122,11 +138,6 @@ class FEMSystem:
             # fail fast, before any setup, if the grid cannot be coarsened
             info = mesh.structure
             coarsen_grids((info["nx"], info["ny"], info["nz"]))
-        if not box:
-            raise NotImplementedError(
-                "meshes without box_tets structure need the general ELL "
-                "path (ROADMAP slice B), not yet ported to femcy_tpu_torch"
-            )
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -151,26 +162,75 @@ class FEMSystem:
                 "O(1%%) stress error; use float64 (the default)", nu,
             )
 
-        # analytic pattern + scatter-free assembly plan (O(1) host setup)
-        self.dia = build_structured_dia_pattern(mesh)
-        self._structured_plan = build_structured_plan(mesh, self.dia)
+        sync = torch.cuda.synchronize if device.type == "cuda" else None
+        self.pattern: Optional[ELLPattern] = None
+        self.dia: Optional[DIAPattern] = None
+        self._structured_plan = None
+        #: element stiffness -> values scatter of the general layouts
+        self._scatter_plan = None
+        #: setup phase walls (seconds, synchronised on CUDA): "pattern",
+        #: "dia_pattern" and "scatter_map" on the general layouts, then
+        #: "upload" and "gradients"
+        init_s = {}
+        self._init_seconds = init_s
+
+        def phase(name, fn):
+            t = _time.perf_counter()
+            out = fn()
+            if sync is not None:
+                sync()
+            init_s[name] = _time.perf_counter() - t
+            return out
+
+        if structured:
+            # analytic pattern + scatter-free assembly plan (O(1) host setup)
+            self.dia = build_structured_dia_pattern(mesh)
+            self._structured_plan = build_structured_plan(mesh, self.dia)
+        else:
+            self.pattern = phase("pattern", lambda: build_pattern(mesh))
+            # gather-free DIA layout when the offset structure allows it,
+            # chosen exactly as femcy_tpu does
+            if config.sparse_format in ("auto", "dia"):
+                dia = phase("dia_pattern", lambda: build_dia_pattern(
+                    mesh, max_offsets=config.dia_max_offsets, ell=self.pattern))
+                dense_enough = (
+                    dia is not None
+                    and dia.n_offsets * self.pattern.n_dof <= 4 * self.pattern.nnz
+                )
+                if dia is not None and (config.sparse_format == "dia" or dense_enough):
+                    self.dia = dia
+                elif config.sparse_format == "dia":
+                    raise ValueError(
+                        "sparse_format='dia' but the mesh has no bounded offset "
+                        "structure (try a bandwidth-reducing node ordering)"
+                    )
+            self._scatter_plan = phase("scatter_map", lambda: build_scatter_plan(
+                self.pattern, device, dia=self.dia))
 
         elem = mesh.element
 
         def tensor(a, dt=dtype):
             return torch.as_tensor(np.asarray(a), dtype=dt, device=device)
 
-        arrs = {
-            "nodes": tensor(mesh.nodes),
-            "elements": tensor(mesh.elements, torch.int64),
-            "dN": tensor(elem.dshape_at_gp),
-            "w": tensor(elem.gauss_weights),
-            "C": tensor(material.C),
-        }
+        def upload():
+            arrs = {
+                "nodes": tensor(mesh.nodes),
+                "elements": tensor(mesh.elements, torch.int64),
+                "dN": tensor(elem.dshape_at_gp),
+                "w": tensor(elem.gauss_weights),
+                "C": tensor(material.C),
+            }
+            if self.pattern is not None and self.dia is None:
+                # the ELL Dirichlet elimination and Jacobi diagonal
+                arrs["colidx"] = tensor(self.pattern.colidx, torch.int64)
+                arrs["diag_slot"] = tensor(self.pattern.diag_slot, torch.int64)
+            return arrs
+
+        arrs = phase("upload", upload)
         # initial-configuration gradients are constant: precompute once
-        arrs["dsdX0"], arrs["vol0"] = assembly.gradients_and_volume(
-            arrs["nodes"], arrs["elements"], arrs["dN"], arrs["w"]
-        )
+        arrs["dsdX0"], arrs["vol0"] = phase(
+            "gradients", lambda: assembly.gradients_and_volume(
+                arrs["nodes"], arrs["elements"], arrs["dN"], arrs["w"]))
         self._arrs = arrs
 
         # --- state ----------------------------------------------------------
@@ -181,18 +241,20 @@ class FEMSystem:
         self.dt = 0.0
         #: PCG iteration count of the most recent CG solve (0 until one ran)
         self._last_cg_iters: int = 0
-        self.timer = Timer(
-            verbose=config.verbose,
-            sync=torch.cuda.synchronize if device.type == "cuda" else None,
-        )
+        self.timer = Timer(verbose=config.verbose, sync=sync)
         #: last Dirichlet (fixed, sval) tensors applied by solve()
         self._last_dirichlet = None
 
-        #: (prep, apply) of the DIA SpMV kernel; None = the plain slices
-        self._spmv = (
-            None if config.spmv == "slices"
-            else make_spmv(mesh.n_dof, self.dia.offsets, device)
-        )
+        #: (prep, apply) of the SpMV kernel of the layout (P1 on DIA, M2 on
+        #: ELL); None = the plain torch SpMV
+        if config.spmv == "slices":
+            self._spmv = None
+        elif self.dia is not None:
+            self._spmv = make_spmv(mesh.n_dof, self.dia.offsets, device)
+        else:
+            self._spmv = ell_spmv.make_spmv(self.pattern, device)
+        # block Jacobi runs on the DIA layout only; the ELL PCG keeps the
+        # scalar Jacobi under "block_jacobi", as femcy_tpu's does
         self._block_dm = (
             mesh.dm if config.preconditioner == "block_jacobi" else 0
         )
@@ -205,37 +267,53 @@ class FEMSystem:
     # device steps
     # ------------------------------------------------------------------ #
     def _assemble_values(self):
-        """DIA values (n_dof, K) of the stiffness on the initial
-        configuration, by structured_assemble_coords' default route."""
+        """Values of the stiffness on the initial configuration in the
+        system's layout: on the structured box by
+        structured_assemble_coords' default route, else element
+        stiffnesses scattered by kernels/ell_scatter (one M1 launch on
+        CUDA)."""
         a = self._arrs
-        return structured_assemble_coords(
-            a["nodes"], self.mesh, a["dN"], a["w"], a["C"],
-            self._structured_plan, C_host=np.asarray(self.material.C),
-        )
+        if self._structured_plan is not None:
+            return structured_assemble_coords(
+                a["nodes"], self.mesh, a["dN"], a["w"], a["C"],
+                self._structured_plan, C_host=np.asarray(self.material.C),
+            )
+        return scatter(self._element_stiffness(), self._scatter_plan)
+
+    def _element_stiffness(self):
+        """Element stiffnesses (E, edof, edof) on the initial configuration
+        (plain torch einsum, as femcy_tpu leaves it to XLA)."""
+        a = self._arrs
+        return assembly.element_stiffness(a["dsdX0"], a["vol0"], a["C"])
 
     def _linear_system(self, rhs, fixed, sval):
         """Assemble + Dirichlet-eliminate for the linear path, always on the
         initial configuration (as femcy_tpu's _linear_system_impl)."""
         values = self._assemble_values()
-        values, rhs = dia_dirichlet_linear(
-            values, self.dia.offsets, self.dia.diag_idx, rhs, fixed, sval
-        )
+        if self.dia is not None:
+            values, rhs = dia_dirichlet_linear(
+                values, self.dia.offsets, self.dia.diag_idx, rhs, fixed, sval
+            )
+        else:
+            values, rhs = bc_mod.apply_dirichlet_linear(
+                values, self._arrs["colidx"], self._arrs["diag_slot"], rhs,
+                fixed, sval,
+            )
         return values, rhs, self._arrs["vol0"]
 
     def _solve_linear_system(self, values, b, fixed):
         """Direct host solve below ``direct_solve_max_dof`` dofs (or when
-        forced), the DIA PCG otherwise (ref: stiffnessMtrx.py:272-276);
-        ``fixed`` (the Dirichlet mask ``values`` was eliminated with) keys
-        the multigrid hierarchy."""
+        forced), the PCG of the layout otherwise (ref:
+        stiffnessMtrx.py:272-276); ``fixed`` (the Dirichlet mask ``values``
+        was eliminated with) keys the multigrid hierarchy."""
         cfg = self.config
         use_direct = cfg.linear_solver == "direct" or (
             cfg.linear_solver == "auto"
             and self.mesh.n_dof < cfg.direct_solve_max_dof
         )
         if use_direct:
-            x = direct_solve(
-                self.dia, values.cpu().numpy(), b.cpu().numpy()
-            )
+            pattern = self.dia if self.dia is not None else self.pattern
+            x = direct_solve(pattern, values.cpu().numpy(), b.cpu().numpy())
             return torch.as_tensor(x, dtype=self.dtype, device=self.device)
         if cfg.preconditioner == "multigrid":
             self._ensure_multigrid(fixed)
@@ -249,11 +327,17 @@ class FEMSystem:
             self._warn_cg_cap(iters, rmax, b)
             self._last_cg_iters = iters
             return x
-        x, iters, rmax = dia_pcg_solve(
-            values, self.dia.offsets, self.dia.diag_idx, b,
-            eps=cfg.cg_eps, max_iters=cfg.cg_max_iters,
-            block_dm=self._block_dm, spmv=self._spmv,
-        )
+        if self.dia is not None:
+            x, iters, rmax = dia_pcg_solve(
+                values, self.dia.offsets, self.dia.diag_idx, b,
+                eps=cfg.cg_eps, max_iters=cfg.cg_max_iters,
+                block_dm=self._block_dm, spmv=self._spmv,
+            )
+        else:
+            x, iters, rmax = pcg_solve(
+                values, self._arrs["colidx"], self._arrs["diag_slot"], b,
+                eps=cfg.cg_eps, max_iters=cfg.cg_max_iters, spmv=self._spmv,
+            )
         if cfg.verbose:
             logger.info("CG: %d iters, ||r||_inf=%.3e", iters, float(rmax))
         self._warn_cg_cap(iters, rmax, b)
@@ -315,8 +399,8 @@ class FEMSystem:
         """
         if on_newton is not None:
             raise NotImplementedError(
-                "on_newton needs the Newton path (the structured Newton "
-                "slice), not yet ported to femcy_tpu_torch"
+                "on_newton needs the Newton path (ROADMAP queue 1.1), not "
+                "yet ported to femcy_tpu_torch"
             )
         t_start = _time.time()
         cfg = self.config

@@ -29,8 +29,11 @@ def test_imports_and_solves_without_jax():
         import femcy_tpu_torch as T
         from femcy_tpu_torch.io.inp import DirichletBC, InpModel
         from femcy_tpu_torch.kernels import (
-            dia_spmv, structured_accumulate, structured_fused)
-        from femcy_tpu_torch.solvers import multigrid
+            dia_spmv, ell_scatter, ell_spmv, structured_accumulate,
+            structured_fused)
+        from femcy_tpu_torch.native import loader
+        from femcy_tpu_torch.solvers import cg, multigrid
+        from femcy_tpu_torch import assembly_host, topology
 
         mesh = T.meshgen.box_tets(3, 2, 2)
         bottom = np.nonzero(mesh.nodes[:, 2] < 1e-9)[0]
@@ -49,6 +52,18 @@ def test_imports_and_solves_without_jax():
                                               preconditioner="multigrid"))
         assert m.solve(inp).success and m._last_cg_iters > 0
         assert np.isfinite(s.dof.numpy()).all()
+        # the general ELL path, with the native pattern library
+        u = T.meshgen.unstructured_box_tets(3)
+        ub = np.nonzero(u.nodes[:, 2] < 1e-9)[0]
+        ut = np.nonzero(u.nodes[:, 2] > 1 - 1e-9)[0]
+        ubcs = [DirichletBC(ub, d, 0.0) for d in range(3)]
+        ubcs.append(DirichletBC(ut, 0, 0.01))
+        uinp = InpModel(u.nodes, u.elements, "C3D4", {}, {}, {}, ubcs, [],
+                        "Elastic", [1000.0, 0.3], False, inp.time_incs)
+        g = T.FEMSystem(u, T.LinearIsotropic(1000.0, 0.3),
+                        config=T.SolverConfig(linear_solver="cg"))
+        assert g.dia is None and loader.get_lib() is not None
+        assert g.solve(uinp).success and g._last_cg_iters > 0
         assert not any(m == "jax" or m.startswith(("jax.", "femcy_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")

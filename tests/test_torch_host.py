@@ -130,7 +130,7 @@ def test_solver_config_fields_and_defaults():
 @pytest.mark.parametrize(
     "kw",
     [
-        {"sparse_format": "ell"},
+        {"sparse_format": "ell", "preconditioner": "amg"},
         {"dense_operator_max_dof": 10},
         {"sharding": "banded"},
         {"preconditioner": "amg"},

@@ -133,8 +133,9 @@ def test_float32_switch(monkeypatch):
     "make, kw",
     [
         (lambda: T.meshgen.box_tets(2, 2, 2), {"geometric_nonlinear": True}),
-        (lambda: T.meshgen.box_hexes(2, 2, 2), {}),
-        (lambda: T.meshgen.unstructured_box_tets(2), {}),
+        (lambda: T.meshgen.box_hexes(2, 2, 2), {"geometric_nonlinear": True}),
+        (lambda: T.meshgen.unstructured_box_tets(2),
+         {"geometric_nonlinear": True}),
     ],
 )
 def test_unported_paths_raise(make, kw):
