@@ -21,10 +21,14 @@ Phases (any failure raises, and the script exits non-zero):
      f64 numpy analytic operator, and bit-identical on a rerun;
    - P3 fused assembly kernel vs its plain version (isotropic prep + plain
      accumulate) and vs the f64 analytic operator, bit-identical on a
-     rerun.
+     rerun; then on the nodes jittered by up to 0.1 cell (uniform,
+     seeded) vs its plain version, bit-identical on a rerun.
    Tolerances, relative to max|reference|: 1e-12 in float64, 1e-5 in
    float32.  At NX=56 the kernels and their plain versions are timed with
-   CUDA events, in turns (plain, kernel, kernel, plain); P3 also against
+   CUDA events, in turns (plain, kernel, kernel, plain); P1 also against
+   cuSPARSE's CSR matvec of the same operator's in-range entries and P2
+   against one ``index_add_`` of the planes over int64 targets (each
+   built before the timing, timed in turns with the kernel), P3 against
    the two-stage path it replaces (isotropic prep + P2).
 4. two-stage path: ``structured_assemble_coords(accumulate="pallas")`` on
    the NX=56 box in float64 against the analytic operator, with P2's
@@ -55,7 +59,10 @@ Phases (any failure raises, and the script exits non-zero):
      bit-identical on a rerun;
    - M2 ELL SpMV kernel vs the plain row gather on the operator after
      Dirichlet elimination, x seeded with numpy.
-   Tolerances as in phase 3; at NX=56 both timed in turns.
+   Tolerances as in phase 3; at NX=56 both timed in turns, M1 also
+   against one ``index_add_`` over the int64 dof-level targets and M2
+   against cuSPARSE's CSR matvec of the valid slots (both built before
+   the timing).
 8. ELL slice (the general main path): FEMSystem(unstructured_box_tets(56),
    LinearIsotropic(1000, 0.3), SolverConfig(), device="cuda") in float64
    (1,053,696 C3D4 elements, 555,579 dofs; "auto" picks the ELL layout
@@ -78,10 +85,14 @@ Phases (any failure raises, and the script exits non-zero):
    Abaqus text (node sets, *Boundary, a *Surface with a *Dsload
    pressure, *Elastic, *Static), read with read_inp, solved on the card
    with the CG at cg_eps=1e-10 (M1 and M2) against the host direct solve.
-11. print the kernel table as one JSON line (launches from the path that
-   runs each kernel: P1 and P3 from the multigrid slice, P2 from the
-   two-stage path, M1 and M2 from the ELL slice), then the result line
-   ``{"ok": true, "device": {...}}`` last.
+11. print the launch counts of every path, then the kernel table as one
+   JSON line: per kernel, its f64 time and its plain version's, the
+   library call's (null for P3, which no single PyTorch call computes
+   from coordinates), its bound (the larger of its bytes over 3.35 TB/s and its
+   operations over the f64 peak, from this run's shapes) and the launches
+   of the path that runs it (P1 and P3 from the multigrid slice, P2 from
+   the two-stage path, M1 and M2 from the ELL slice); then the result
+   line ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
@@ -94,6 +105,11 @@ import time
 import numpy as np
 
 TOL = {"float32": 1e-5, "float64": 1e-12}
+#: the bound of a kernel: the larger of its bytes over the HBM rate and its
+#: operations over the peak rate of its type (H100 SXM data sheet, dense,
+#: 700 W; float64 and float32 outside the tensor cores)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 DEVICE = "cuda"
 SMALL, FULL = (9, 7, 5), (56, 56, 56)
 #: unstructured_box_tets sizes of the general kernel checks; the last one
@@ -134,13 +150,74 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def in_turns(plain, kernel, reps_plain: int, reps_kernel: int):
-    """(kernel ms, plain ms), timed plain, kernel, kernel, plain."""
+def in_turns(plain, kernel, reps_plain: int, reps_kernel: int,
+             library=None):
+    """(kernel ms, plain ms, library ms or None), timed plain, library,
+    kernel, kernel, library, plain; the library call gets the kernel's
+    repetitions."""
     p1 = cuda_ms(plain, reps_plain)
+    l1 = cuda_ms(library, reps_kernel) if library else None
     k1 = cuda_ms(kernel, reps_kernel)
     k2 = cuda_ms(kernel, reps_kernel)
+    l2 = cuda_ms(library, reps_kernel) if library else None
     p2 = cuda_ms(plain, reps_plain)
-    return (k1 + k2) / 2.0, (p1 + p2) / 2.0
+    lib = (l1 + l2) / 2.0 if library else None
+    return (k1 + k2) / 2.0, (p1 + p2) / 2.0, lib
+
+
+def bound(n_bytes: float, flops: float, name: str):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    for n_bytes moved and flops done in dtype ``name``."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def row(abs_err, ms, plain_ms, library_ms, bound_ms_by):
+    """One kernel's numbers for the kernel table."""
+    return {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms_by[0],
+            "bound_by": bound_ms_by[1]}
+
+
+def csr_matvec(keep, cols, values):
+    """The library yardstick of an SpMV: a CSR tensor (int32 indices) of
+    the entries of ``values`` where ``keep`` holds, and its matvec."""
+    import warnings
+
+    import torch
+
+    n = keep.shape[0]
+    crow = torch.zeros(n + 1, dtype=torch.int32, device=keep.device)
+    crow[1:] = keep.sum(1).cumsum(0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # "sparse CSR support is in beta"
+        A = torch.sparse_csr_tensor(crow, cols[keep].int(), values[keep],
+                                    size=(n, n), check_invariants=False)
+    return lambda x: A @ x
+
+
+def accumulate_targets(plan, device):
+    """P2's function as flat int64 targets, one per plane entry: entry
+    (o, 12 p + q, cell) of the (6, 144, cells) planes goes to DIA value
+    (node * 3 + i) * K + k of the (n_dof, K) output, where (i, k) is the
+    group of ``plan.groups`` that holds (o, p, q) and node is the cell's
+    node shifted by that combo's corner."""
+    import torch
+
+    nx, ny, nz, K = plan.nx, plan.ny, plan.nz, plan.n_offsets
+    sx, sy = (ny + 1) * (nz + 1), nz + 1
+    base = np.full((6, 144), -1, dtype=np.int64)
+    for (i, k), combos in plan.groups.items():
+        for o, p, q, (dx, dy, dz) in combos:
+            base[o, 12 * p + q] = ((dx * sx + dy * sy + dz) * 3 + i) * K + k
+    check(bool((base >= 0).all()), "a plane entry has no DIA value")
+    cx, cy, cz = np.meshgrid(np.arange(nx), np.arange(ny), np.arange(nz),
+                             indexing="ij")
+    node = torch.as_tensor((cx * sx + cy * sy + cz).reshape(-1) * (3 * K),
+                           device=device)
+    return (torch.as_tensor(base, device=device)[:, :, None]
+            + node[None, None]).reshape(-1)
 
 
 def launch_counters():
@@ -209,6 +286,10 @@ def kernel_checks(torch, card, results):
             fixed[bottom * 3 + d] = True
         ref_bc = dia_dirichlet_linear_numpy(ref, dia.offsets, dia.diag_idx, fixed)
         x_np = np.random.default_rng(0).standard_normal(mesh.n_dof)
+        # every node moved by up to 0.1 cell per axis (uniform, seeded)
+        cell = (mesh.nodes.max(0) - mesh.nodes.min(0)) / np.array(dims)
+        jittered = mesh.nodes + cell * np.random.default_rng(3).uniform(
+            -0.1, 0.1, mesh.nodes.shape)
         for dtype in (torch.float32, torch.float64):
             name = str(dtype).split(".")[1]
             tol = TOL[name]
@@ -260,9 +341,23 @@ def kernel_checks(torch, card, results):
             check(torch.equal(v_k, k_fused.fused_assemble(coords, fplan)),
                   f"P3 {dims} {name}: rerun not bit-identical")
             del v_k, v_p
+            # P3 on jittered coordinates: every tet's gradients differ, so
+            # a wrong cell or halo node shows in every row, not only at
+            # the box's faces
+            jit = dev(jittered)
+            v_k = k_fused.fused_assemble(jit, fplan)
+            v_p = fused_assemble_plain(jit, mesh, fplan.lam, fplan.mu, plan)
+            torch.cuda.synchronize()
+            rel3j = float((v_k - v_p).abs().max() / v_p.abs().max())
+            check(rel3j <= tol, f"P3 vs plain, jittered {dims} {name}: "
+                  f"{rel3j:.3e}")
+            check(torch.equal(v_k, k_fused.fused_assemble(jit, fplan)),
+                  f"P3 jittered {dims} {name}: rerun not bit-identical")
+            del v_k, v_p, jit
             print(f"kernels {dims} {name}: P1 rel err {rel1:.3e}, P2 rel err "
                   f"{rel2:.3e} vs plain, {rel2a:.3e} vs analytic f64, P3 rel "
-                  f"err {rel3:.3e} vs plain, {rel3a:.3e} vs analytic f64 "
+                  f"err {rel3:.3e} vs plain, {rel3a:.3e} vs analytic f64, "
+                  f"{rel3j:.3e} vs plain on jittered coordinates "
                   f"(tol {tol:.0e})", flush=True)
 
             if dims == FULL:
@@ -270,12 +365,45 @@ def kernel_checks(torch, card, results):
                     coords, mesh, dev(mesh.element.dshape_at_gp),
                     dev(mesh.element.gauss_weights), dev(mat.C),
                 )
-                ms1, pms1 = in_turns(
+                # P1's yardstick: cuSPARSE's CSR matvec of the in-range
+                # entries, built here, outside the timed window
+                n, K = vals.shape
+                cols = (torch.arange(n, device=DEVICE)[:, None]
+                        + torch.as_tensor(dia.offsets, device=DEVICE)[None])
+                keep = (cols >= 0) & (cols < n)
+                nnz1 = int(keep.sum())
+                lib1 = csr_matvec(keep, cols, vals)
+                del cols, keep
+                check(float((lib1(x) - y_p).abs().max()) <= tol * float(
+                    y_p.abs().max()), "P1's CSR yardstick disagrees")
+                ms1, pms1, lms1 = in_turns(
                     lambda: dia_spmv(vals, dia.offsets, x),
-                    lambda: k_spmv.spmv(plan1, vt, x), 20, 50)
-                ms2, pms2 = in_turns(
+                    lambda: k_spmv.spmv(plan1, vt, x), 20, 50,
+                    lambda: lib1(x))
+                del lib1
+                isz = vals.element_size()
+                b1 = bound((K * n + 2 * n) * isz + 4 * K, 2 * nnz1, name)
+                # P2's yardstick: one index_add_ of the planes into their
+                # DIA values over int64 targets, built here, outside the
+                # timed window
+                targets = accumulate_targets(plan, DEVICE)
+                lib_out = torch.zeros(n * K, dtype=dtype, device=DEVICE)
+                planes_flat = planes.view(-1)
+                lib_out.index_add_(0, targets, planes_flat)
+                v_k = k_acc.accumulate(planes, table)
+                check(float((lib_out.view(n, K) - v_k).abs().max()) <= tol
+                      * float(v_k.abs().max()), "P2's index_add_ yardstick "
+                      "disagrees")
+                del v_k
+                ms2, pms2, lms2 = in_turns(
                     lambda: accumulate_planes(planes, plan),
-                    lambda: k_acc.accumulate(planes, table), 3, 10)
+                    lambda: k_acc.accumulate(planes, table), 3, 10,
+                    lambda: lib_out.index_add_(0, targets, planes_flat))
+                del targets, lib_out
+                nc = dims[0] * dims[1] * dims[2]
+                b2 = bound((planes.numel() + n * K) * isz
+                           + 4 * (table.col_start.size + table.entries.size),
+                           864 * nc, name)
                 del planes
                 lame = (fplan.lam, fplan.mu)
                 dN = dev(mesh.element.dshape_at_gp)
@@ -286,22 +414,30 @@ def kernel_checks(torch, card, results):
                         stiffness_planes(coords, mesh, dN, w, None, lame=lame),
                         table)
 
-                ms3, pms3 = in_turns(
+                ms3, pms3, _ = in_turns(
                     lambda: fused_assemble_plain(coords, mesh, *lame, plan),
                     lambda: k_fused.fused_assemble(coords, fplan), 3, 10)
-                ms3b, two_ms = in_turns(
+                ms3b, two_ms, _ = in_turns(
                     two_stage, lambda: k_fused.fused_assemble(coords, fplan),
                     3, 10)
+                # per tet: the gradients (~180 flops) and 144 stiffness
+                # entries of ~7 flops, 48 of them with a 7-flop dot term
+                b3 = bound((mesh.n_nodes * 3 + n * K) * isz,
+                           6 * nc * (180 + 144 * 7 + 48 * 7), name)
                 print(f"timing {dims} {name} on {card}: P1 dia_spmv kernel "
-                      f"{ms1:.4f} ms, plain {pms1:.4f} ms; P2 accumulate "
-                      f"kernel {ms2:.4f} ms, plain {pms2:.4f} ms; P3 fused "
-                      f"kernel {ms3:.4f} ms, plain {pms3:.4f} ms; P3 "
+                      f"{ms1:.4f} ms, plain {pms1:.4f} ms, CSR matvec "
+                      f"(cuSPARSE, {nnz1} entries) {lms1:.4f} ms, bound "
+                      f"{b1[0]:.4f} ms ({b1[1]}); P2 accumulate "
+                      f"kernel {ms2:.4f} ms, plain {pms2:.4f} ms, index_add_ "
+                      f"{lms2:.4f} ms, bound {b2[0]:.4f} ms ({b2[1]}); P3 fused "
+                      f"kernel {ms3:.4f} ms, plain {pms3:.4f} ms, bound "
+                      f"{b3[0]:.4f} ms ({b3[1]}); P3 "
                       f"{ms3b:.4f} ms against the two-stage path (isotropic "
                       f"prep + P2) {two_ms:.4f} ms", flush=True)
                 results[name] = {
-                    "dia_spmv": (abs1, ms1, pms1),
-                    "structured_accumulate": (abs2, ms2, pms2),
-                    "structured_fused": (abs3, ms3, pms3),
+                    "dia_spmv": row(abs1, ms1, pms1, lms1, b1),
+                    "structured_accumulate": row(abs2, ms2, pms2, lms2, b2),
+                    "structured_fused": row(abs3, ms3, pms3, None, b3),
                 }
             del vals, vt, coords
         torch.cuda.empty_cache()
@@ -622,16 +758,50 @@ def general_kernel_checks(torch, card, results):
                   f"rel err {rel2:.3e} vs plain (tol {tol:.0e})", flush=True)
 
             if nx == UNSTRUCT[-1]:
-                ms1, pms1 = in_turns(lambda: k_scat.scatter_plain(Ke, plan),
-                                     lambda: k_scat.scatter(Ke, plan), 3, 10)
-                ms2, pms2 = in_turns(lambda: ell_spmv(vals, colidx, x),
-                                     lambda: k_ell.spmv(splan, vt, x), 20, 50)
+                # M1's yardstick: one index_add_ over the int64 dof-level
+                # targets, built here, outside the timed window
+                targets = assembly.expand_block_targets(
+                    k_scat.block_targets(plan), plan.node_width, plan.dm,
+                    plan.width, plan.npe)
+                lib_out = torch.zeros(plan.out_shape, dtype=dtype,
+                                      device=DEVICE).view(-1)
+                ke_flat = Ke.view(-1)
+                ms1, pms1, lms1 = in_turns(
+                    lambda: k_scat.scatter_plain(Ke, plan),
+                    lambda: k_scat.scatter(Ke, plan), 3, 10,
+                    lambda: lib_out.index_add_(0, targets, ke_flat))
+                del targets, lib_out
+                isz = Ke.element_size()
+                plan_bytes = sum(t.numel() * t.element_size()
+                                 for t in (plan.ptr, plan.ids, plan.out_map)
+                                 if t is not None)
+                b1 = bound((Ke.numel() + v_k.numel()) * isz + plan_bytes,
+                           Ke.numel(), name)
+                # M2's yardstick: cuSPARSE's CSR matvec of the valid slots
+                n, W = vals.shape
+                keep = (torch.arange(W, device=DEVICE)[None]
+                        < splan.row_counts[:, None])
+                nnz2 = int(keep.sum())
+                lib2 = csr_matvec(keep, colidx, vals)
+                del keep
+                check(float((lib2(x) - y_p).abs().max()) <= tol * float(
+                    y_p.abs().max()), "M2's CSR yardstick disagrees")
+                ms2, pms2, lms2 = in_turns(
+                    lambda: ell_spmv(vals, colidx, x),
+                    lambda: k_ell.spmv(splan, vt, x), 20, 50,
+                    lambda: lib2(x))
+                del lib2
+                b2 = bound(nnz2 * (isz + 4) + n * (4 + 2 * isz), 2 * nnz2,
+                           name)
                 print(f"timing unstructured_box_tets({nx}) {name} on {card}: "
-                      f"M1 ell_scatter kernel {ms1:.4f} ms, plain {pms1:.4f} ms;"
-                      f" M2 ell_spmv kernel {ms2:.4f} ms, plain {pms2:.4f} ms",
+                      f"M1 ell_scatter kernel {ms1:.4f} ms, plain {pms1:.4f} "
+                      f"ms, index_add_ {lms1:.4f} ms, bound {b1[0]:.4f} ms "
+                      f"({b1[1]}); M2 ell_spmv kernel {ms2:.4f} ms, plain "
+                      f"{pms2:.4f} ms, CSR matvec (cuSPARSE, {nnz2} entries) "
+                      f"{lms2:.4f} ms, bound {b2[0]:.4f} ms ({b2[1]})",
                       flush=True)
-                results[name]["ell_scatter"] = (abs1, ms1, pms1)
-                results[name]["ell_spmv"] = (abs2, ms2, pms2)
+                results[name]["ell_scatter"] = row(abs1, ms1, pms1, lms1, b1)
+                results[name]["ell_spmv"] = row(abs2, ms2, pms2, lms2, b2)
                 out = K
             del Ke, v_k, vals, vt, nodes
         del plan, splan, colidx, diag_slot
@@ -827,7 +997,8 @@ def inp_text(mesh) -> str:
 
 
 def inp_run(torch):
-    """Phase 10: the user's entry point on a general .inp model."""
+    """Phase 10: the user's entry point on a general .inp model.  Returns
+    the launch counts of its CG solve."""
     import tempfile
 
     from femcy_tpu_torch import (
@@ -863,7 +1034,7 @@ def inp_run(torch):
               and (solver == "direct") == (s._last_cg_iters == 0),
               f".inp {solver}: M2 {launches}, {s._last_cg_iters} iterations")
         dofs[solver] = s.dof.cpu().numpy()
-        iters, m2 = s._last_cg_iters, launches["ell_spmv"]
+        iters, m2, cg_launches = s._last_cg_iters, launches["ell_spmv"], launches
     rel = float(np.abs(dofs["cg"] - dofs["direct"]).max()
                 / np.abs(dofs["direct"]).max())
     check(rel <= 1e-7, f".inp CG vs direct: {rel:.3e}")
@@ -871,6 +1042,7 @@ def inp_run(torch):
           f"C3D4, {mesh.n_dof} dofs, *Dsload on {len(inp.neumann_bcs[0].face_set)}"
           f" facets): CG (cg_eps 1e-10, {iters} iterations, M2 launched "
           f"{m2} times) vs host direct solve rel err {rel:.3e}", flush=True)
+    return cg_launches
 
 
 def main() -> int:
@@ -894,10 +1066,12 @@ def main() -> int:
     coarse_spmv_checks(torch)
     p2_launches = two_stage_run(torch, full_ref)
     launches = slice_run(torch, card, full_ref, "multigrid")
+    by_path = {"multigrid box": dict(launches)}
     small_box_check(torch, (8, 8, 8), "multigrid")
-    slice_run(torch, card, full_ref, "jacobi")
+    by_path["jacobi box"] = slice_run(torch, card, full_ref, "jacobi")
     small_box_check(torch, SMALL, "jacobi")
     launches["structured_accumulate"] = p2_launches
+    by_path["two-stage box assembly"] = {"structured_accumulate": p2_launches}
     del full_ref
 
     from femcy_tpu_torch.assembly_host import assemble_csr_host
@@ -908,6 +1082,7 @@ def main() -> int:
     host_K = general_kernel_checks(torch, card, results)
     ell = general_slice_run(torch, card, unstructured_box_tets(UNSTRUCT[-1]),
                             "ell", host_K)
+    by_path["ELL slice"] = ell
     del host_K
     launches["ell_scatter"] = ell["ell_scatter"]
     launches["ell_spmv"] = ell["ell_spmv"]
@@ -917,9 +1092,13 @@ def main() -> int:
                               LinearIsotropic(1000.0, 0.3).C)
     print(f"general-DIA slice: f64 host operator of box_hexes{HEX} in "
           f"{time.perf_counter() - t:.3f} s", flush=True)
-    general_slice_run(torch, card, hexes, "dia", hex_K)
+    by_path["general-DIA slice"] = general_slice_run(torch, card, hexes, "dia",
+                                                     hex_K)
     del hex_K
-    inp_run(torch)
+    by_path[".inp model, CG"] = inp_run(torch)
+    print("launches per solve, by path: " + json.dumps(
+        {path: {k: v for k, v in counts.items() if v}
+         for path, counts in by_path.items()}), flush=True)
 
     source = {
         "dia_spmv": ("femcy_tpu_torch/csrc/dia_spmv.cu",
@@ -939,11 +1118,10 @@ def main() -> int:
     }
     rows = []
     for name, (src, replaces) in source.items():
-        abs_err, ms, plain_ms = results["float64"][name]
         rows.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+            **results["float64"][name],
         })
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

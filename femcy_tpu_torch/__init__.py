@@ -17,7 +17,8 @@ rewritten by hand in CUDA for sm_90a (kernels/, csrc/): the DIA SpMV
 (the isotropic box default); so are the general path's deterministic
 stiffness scatter and ELL SpMV.
 
-Tensors live on the device given to ``FEMSystem`` (no auto-detection) in
+Tensors live on the device given to ``FEMSystem``: the card unless
+``device="cpu"`` is passed (no auto-detection, and no CPU fallback), in
 float64 by default; ``FEMCY_TPU_X64=0`` selects float32, as in femcy_tpu.
 TF32 is off for matmuls and convolutions: f32 products run at full f32
 precision (the twin of femcy_tpu forcing "highest" matmul precision).

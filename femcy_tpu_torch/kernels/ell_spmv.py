@@ -6,6 +6,9 @@ Replaces the gather SpMV of ``femcy_tpu/solvers/cg.py`` (``ell_spmv``,
 operands -- the values made once per solve (``prep_values``), the column
 ids and row counts once per pattern (``spmv_plan``).
 
+The kernel walks six rows per thread in f64 and one in f32, each summed
+in slot order with one multiply-add per slot (see the source).
+
 ``spmv`` launches the kernel for CUDA tensors and raises if it cannot; for
 CPU tensors, and only for them, it runs the plain version
 (``solvers.cg.ell_spmv``).  ``spmv.launches`` counts kernel launches.

@@ -11,13 +11,16 @@ the 1M-element box) and the 262 MB of DIA values: the two-stage path
 writes and reads back 1.2 GB of (6, 144, cells) planes.
 
 The kernel is the gather form of P2 with the planes computed on the fly:
-a block owns 32 consecutive nodes, stages the gradients of the cells they
-touch in shared memory one orientation at a time, and sums each output
-entry's combos in the plain version's order, with no atomics (see the
-source).  The TPU plan's 128-lane DMA windows, ``_PF2`` cover, 32-row
-sublane pad, VMEM budget and f32 gate have no counterpart: the kernel
-reads the (n_nodes, 3) coordinates as they are, in f32 or f64, at any box
-size.
+a block owns a 4 x 4 x 4 brick of nodes, stages the gradients of every
+tet of the cells it touches once in shared memory, and each thread keeps
+one dof row's 45 sums in registers across the six orientations, summed in
+the plain version's order with no atomics (see the source).  The Kuhn
+subdivision of ``meshgen.box_tets`` (``KUHN``) is compiled into the
+kernel; ``FusedTable`` pre-decodes the plan into the DIA column of each
+(row i, neighbour slot, dof j).  The TPU plan's 128-lane DMA windows,
+``_PF2`` cover, 32-row sublane pad, VMEM budget and f32 gate have no
+counterpart: the kernel reads the (n_nodes, 3) coordinates as they are, in
+f32 or f64, at any box size.
 
 ``fused_assemble`` launches the kernel for CUDA tensors and raises if it
 cannot; for CPU tensors, and only for them, it runs the plain version
@@ -45,63 +48,88 @@ _ENTRY = {
     torch.float32: "femcy_fused_assemble_f32",
     torch.float64: "femcy_fused_assemble_f64",
 }
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+#: the Kuhn subdivision compiled into the kernel (meshgen.box_tets): the
+#: cube corners of tet o, corner c at (c & 1, c >> 1 & 1, c >> 2 & 1).
+#: The kernel's kuhn() and slot_of() are held to KUHN and SLOTS27 by
+#: tests/test_torch_fused.py, which reads them from the source.
+KUHN = ((0, 1, 3, 7), (0, 1, 7, 5), (0, 5, 7, 4), (0, 4, 7, 6), (0, 6, 7, 2),
+        (0, 2, 7, 3))
+
+
+def corner_delta(c: int) -> np.ndarray:
+    """The {0,1}^3 offset of cube corner c in the kernel's numbering."""
+    return np.array([c & 1, (c >> 1) & 1, (c >> 2) & 1])
+
+
+def _code27(v) -> int:
+    """Node offset v in {-1,0,1}^3 as (vx + 1) 9 + (vy + 1) 3 + vz + 1."""
+    return int((v[0] + 1) * 9 + (v[1] + 1) * 3 + v[2] + 1)
+
+
+#: the kernel's 15 neighbour slots: the node offsets between two corners
+#: of a Kuhn tet, as ``_code27``, in ascending order
+SLOTS27 = tuple(sorted({
+    _code27(corner_delta(cb) - corner_delta(ca))
+    for t in KUHN for ca in t for cb in t
+}))
+
+
+def slot_of(d_a, d_b) -> int:
+    """The kernel's neighbour slot of node offset d_b - d_a."""
+    return SLOTS27.index(_code27(np.asarray(d_b) - np.asarray(d_a)))
 
 
 class FusedTable:
-    """The combo list of a StructuredPlan, regrouped for P3.
+    """The combo list of a StructuredPlan, pre-decoded for P3.
 
     rows (6, 4, 4, 3, 3): rows[o, a, b, i, j] = i * K + k, the output
     column of entry ((a, i), (b, j)) of the orientation-o element
     stiffness; shift (6, 4, 3): the {0,1}^3 corner of node a of
     orientation o in its cell (femcy_tpu's ``rows``/``ashift``).
 
-    The kernel's form: a CSR table over (orientation, column) pairs,
-    col_start (6 * 3K + 1,) int32, pair o * 3K + c owning
-    entries[col_start[..]:col_start[.. + 1]], in plan order; entries
-    (864, 4) int32: (3a + i, 3b + j, 2 dx + dy, dz), (dx, dy, dz) the
-    corner shift of node a; and corner_off (6, 4) int32, the flat node
-    offset of each corner.  The device copies are made once per device.
+    The kernel's form: colk (3, 45) int32, colk[i, 3 s + j] = k, the DIA
+    column of row i's entry for neighbour slot s (``slot_of``) and dof j;
+    each row's other K - 45 columns get no entry.  Raises ValueError if
+    the plan's box is not subdivided as ``KUHN`` or if two entries of a
+    row would share a column.
     """
 
     def __init__(self, plan: StructuredPlan):
         self.plan = plan
         K = plan.n_offsets
-        n_cols = 3 * K
         self.rows = np.full((6, 4, 4, 3, 3), -1, dtype=np.int64)
         self.shift = np.full((6, 4, 3), -1, dtype=np.int64)
-        pairs = [[] for _ in range(6 * n_cols)]
         for (i, k), combos in plan.groups.items():
             for o, p, q, (dx, dy, dz) in combos:
                 a, b, j = p // 3, q // 3, q % 3
                 self.rows[o, a, b, i, j] = i * K + k
                 self.shift[o, a] = (dx, dy, dz)
-                pairs[o * n_cols + i * K + k].append((p, q, 2 * dx + dy, dz))
         if (self.rows < 0).any() or (self.shift < 0).any():
             raise ValueError("the plan does not cover every element entry")
-        self.col_start = np.zeros(6 * n_cols + 1, dtype=np.int32)
-        self.col_start[1:] = np.cumsum([len(c) for c in pairs])
-        self.entries = np.asarray(
-            [e for c in pairs for e in c], dtype=np.int32
-        ).reshape(-1, 4)
-        sy = plan.nz + 1
-        sx = (plan.ny + 1) * sy
-        self.corner_off = (self.shift @ np.array([sx, sy, 1])).astype(np.int32)
-        self._device = {}
+        kuhn = np.array([[corner_delta(c) for c in t] for t in KUHN])
+        if not np.array_equal(self.shift, kuhn):
+            raise ValueError("the fused kernel is compiled for the Kuhn "
+                             "subdivision of meshgen.box_tets")
+        colk = np.full((3, 3 * len(SLOTS27)), -1, dtype=np.int64)
+        for o in range(6):
+            for a in range(4):
+                for b in range(4):
+                    s = slot_of(kuhn[o, a], kuhn[o, b])
+                    for i in range(3):
+                        for j in range(3):
+                            k = self.rows[o, a, b, i, j] - i * K
+                            if colk[i, 3 * s + j] not in (-1, k):
+                                raise ValueError("slot columns disagree")
+                            colk[i, 3 * s + j] = k
+        if (colk < 0).any() or any(len(set(r)) != r.size for r in colk):
+            raise ValueError("two entries of a row share a DIA column")
+        self.colk = colk.astype(np.int32)
 
     @property
     def n_cols(self) -> int:
         return 3 * self.plan.n_offsets
-
-    def on(self, device):
-        """(col_start, entries) as int32 tensors on ``device``."""
-        device = torch.device(device)
-        if device not in self._device:
-            self._device[device] = (
-                torch.from_numpy(self.col_start).to(device),
-                torch.from_numpy(self.entries).to(device).contiguous(),
-            )
-        return self._device[device]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,19 +178,17 @@ def fused_assemble(coords, fp: FusedPlan):
     if coords.device.type != "cuda":
         raise ValueError(f"unsupported device {coords.device}")
 
-    col_start, entries = fp.table.on(coords.device)
     # host arrays, read by the launch function before it returns
     consts = np.ascontiguousarray(
         np.concatenate([[fp.lam, fp.mu, fp.w0], fp.dN0.ravel()]),
         dtype=np.float64,
     )
-    corner = np.ascontiguousarray(fp.table.corner_off, dtype=np.int32)
+    colk = np.ascontiguousarray(fp.table.colk)
     out = coords.new_empty((3 * n_nodes, K))
     fn = _build.entry(_ENTRY[coords.dtype], _ARGTYPES)
     _build.launch(fn, coords.device, "structured_fused kernel launch",
-                  coords.data_ptr(), out.data_ptr(), col_start.data_ptr(),
-                  entries.data_ptr(), consts.ctypes.data, corner.ctypes.data,
-                  nx, ny, nz, fp.table.n_cols)
+                  coords.data_ptr(), out.data_ptr(), consts.ctypes.data,
+                  colk.ctypes.data, nx, ny, nz, fp.table.n_cols)
     fused_assemble.launches += 1
     return out
 

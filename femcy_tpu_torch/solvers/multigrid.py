@@ -44,6 +44,7 @@ from femcy_tpu_torch.structured import (
     analytic_structured_dia_values,
     dia_dirichlet_linear_numpy,
 )
+from femcy_tpu_torch.utils.device import resolve_device
 
 
 def _axis_slice(ndim: int, axis: int, sl: slice):
@@ -149,9 +150,9 @@ _COARSE_SPMV = ("auto", "slices", "pallas")
 class StructuredMultigrid:
     """V-cycle preconditioner over dyadically coarsened box_tets grids.
 
-    Built for a specific (mesh, material, fixed-dof mask) on ``device`` in
-    ``dtype``; ``precondition``/``pcg_solve`` operate on BC-eliminated
-    residuals.
+    Built for a specific (mesh, material, fixed-dof mask) on ``device``
+    (the card unless "cpu" is asked for) in ``dtype``;
+    ``precondition``/``pcg_solve`` operate on BC-eliminated residuals.
 
     smoother="chebyshev" replaces the damped-Jacobi sweeps with a
     degree-``smooth_steps`` Chebyshev polynomial in D^-1 A targeting
@@ -176,7 +177,7 @@ class StructuredMultigrid:
         smoother: str = "jacobi",
         cheby_alpha: float = 4.0,
         coarse_spmv: str = "auto",
-        device="cpu",
+        device="cuda",
         dtype: torch.dtype = torch.float64,
     ):
         info = mesh.structure
@@ -197,7 +198,7 @@ class StructuredMultigrid:
         self.material = material
         self.smoother = smoother
         self.cheby_alpha = cheby_alpha
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.dtype = dtype
         self._lmax: List[float] = []  # per level, Gershgorin of D^-1 A
 

@@ -27,9 +27,9 @@ analysis of any mesh, in the JAX package's three layouts:
 - the adaptive load-stepping loop of ``solve`` is the JAX package's, with
   the linear branch of its increment.
 
-Every tensor lives on the ``device`` given to ``FEMSystem`` (``"cpu"`` or
-``"cuda"``; asking for CUDA without a card raises) in one float dtype
-(float64 unless ``FEMCY_TPU_X64=0``, as in femcy_tpu).  Geometric
+Every tensor lives on the ``device`` given to ``FEMSystem`` (``"cuda"`` by
+default, ``"cpu"`` when asked for; CUDA without a card raises) in one float
+dtype (float64 unless ``FEMCY_TPU_X64=0``, as in femcy_tpu).  Geometric
 nonlinearity (the Newton slice) and the options listed in config._LATER
 raise NotImplementedError naming the slice that brings them.
 """
@@ -68,6 +68,7 @@ from femcy_tpu_torch.structured import (
     structured_assemble_coords,
 )
 from femcy_tpu_torch.topology import ELLPattern, build_pattern
+from femcy_tpu_torch.utils.device import resolve_device
 from femcy_tpu_torch.utils.timing import Timer
 
 logger = logging.getLogger("femcy_tpu_torch")
@@ -119,7 +120,7 @@ class FEMSystem:
         material: Material,
         geometric_nonlinear: bool = False,
         config: SolverConfig = SolverConfig(),
-        device="cpu",
+        device="cuda",
     ):
         if geometric_nonlinear:
             raise NotImplementedError(
@@ -138,14 +139,7 @@ class FEMSystem:
             # fail fast, before any setup, if the grid cannot be coarsened
             info = mesh.structure
             coarsen_grids((info["nx"], info["ny"], info["nz"]))
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"device={str(device)!r} requested but torch.cuda.is_available() "
-                "is False; femcy_tpu_torch never falls back to the CPU"
-            )
-        if device.type not in ("cpu", "cuda"):
-            raise ValueError(f"unsupported device {device}")
+        device = resolve_device(device)
         dtype = default_dtype()
 
         self.mesh = mesh

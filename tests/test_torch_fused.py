@@ -5,8 +5,11 @@ femcy_tpu's.
 - the isotropic 3-term prep against the generic B^T C B prep;
 - ``fused_assemble_plain`` (P3's plain version) against the f64 analytic
   operator and against JAX's fused Pallas kernel, run in interpret mode;
-- P3's gather rule and sum order, emulated in numpy, against the plain
-  version (the CUDA kernel itself runs only on the card, in chip_smoke.py);
+- P3's brick rule, pre-decoded column table and sum order, emulated in
+  numpy, against the plain version (the CUDA kernel itself runs only on
+  the card, in chip_smoke.py);
+- the Kuhn tables compiled into the kernel, read from its source, against
+  the host's;
 - the routes of ``structured_assemble_coords`` and the wrapper's checks.
 
 Tolerances: float64 results agree to 1e-12 relative to the largest entry
@@ -15,6 +18,11 @@ JAX's fused kernel runs in float32 only; against it the port's float32
 plain version is held to 1e-5 of the largest entry (f32 roundoff ~6e-8,
 grown by the sums of up to 24 element entries).
 """
+
+import dataclasses
+import itertools
+import pathlib
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -136,61 +144,71 @@ def test_fused_matches_jax_pallas_interpret():
 
 
 def _emulate_kernel(coords, fp):
-    """numpy re-statement of csrc/structured_fused.cu, block by block: the
-    32-node tile, the four 33-slot cell windows staged one orientation at a
-    time (closed-form cofactors), and the per-(orientation, column) sums
-    added into the tile in CSR order."""
+    """numpy re-statement of csrc/structured_fused.cu, brick by brick: each
+    4^3-node brick's 5^3 cells with the gradients and volume of all six
+    tets (closed-form cofactors), then, for each row i and over the brick's
+    nodes at once, the 45 sums of (neighbour slot, dof j) in the kernel's
+    order -- orientation by orientation, the node's own block summed over
+    the corners a first -- written to the pre-decoded DIA columns."""
     table, plan = fp.table, fp.plan
     nx, ny, nz, K = plan.nx, plan.ny, plan.nz, plan.n_offsets
-    sy = nz + 1
-    sx = (ny + 1) * sy
-    n_nodes, n_cols = (nx + 1) * sx, table.n_cols
-    T, W = 32, 33
-    x = coords.numpy()
-    lane = np.arange(T)
-    out = np.zeros((n_nodes, n_cols))
-    for node0 in range(0, n_nodes, T):
-        tile = np.zeros((T, n_cols))
-        for o in range(6):
-            grad = np.zeros((13, 4 * W))
-            for s in range(4 * W):
-                w = s // W
-                m = node0 - (w >> 1) * sx - (w & 1) * sy - 1 + (s - w * W)
-                if not 0 <= m < n_nodes:
-                    continue
-                cx, rem = divmod(m, sx)
-                cy, cz = divmod(rem, sy)
-                if cx >= nx or cy >= ny or cz >= nz:
-                    continue
-                xs = x[m + table.corner_off[o]]  # (4, 3) corner coordinates
-                J = xs.T @ fp.dN0  # dxdn[D, d]
+    B, C = 4, 5
+    x = coords.numpy().reshape(nx + 1, ny + 1, nz + 1, 3)
+    kuhn = [[kfused.corner_delta(c) for c in t] for t in kfused.KUHN]
+    self_slot = kfused.slot_of((0, 0, 0), (0, 0, 0))
+    out = np.full((nx + 1 + B, ny + 1 + B, nz + 1 + B, 3, K), np.nan)
+    lam, mu = fp.lam, fp.mu
+    for x0, y0, z0 in itertools.product(range(0, nx + 1, B),
+                                        range(0, ny + 1, B),
+                                        range(0, nz + 1, B)):
+        g = np.zeros((6, C, C, C, 4, 3))
+        vol = np.zeros((6, C, C, C))
+        for cx, cy, cz in itertools.product(range(C), repeat=3):
+            gx, gy, gz = x0 - 1 + cx, y0 - 1 + cy, z0 - 1 + cz
+            if not (0 <= gx < nx and 0 <= gy < ny and 0 <= gz < nz):
+                continue
+            for o in range(6):
+                xs = np.array([x[gx + d[0], gy + d[1], gz + d[2]]
+                               for d in kuhn[o]])  # (4, 3) corner coordinates
+                J = xs.T @ fp.dN0  # J[D, d]
                 cof = np.array([[J[(D + 1) % 3, (d + 1) % 3] * J[(D + 2) % 3, (d + 2) % 3]
                                  - J[(D + 1) % 3, (d + 2) % 3] * J[(D + 2) % 3, (d + 1) % 3]
                                  for d in range(3)] for D in range(3)])
                 det = J[0] @ cof[0]
-                grad[:12, s] = ((fp.dN0 @ cof.T) * (1.0 / det)).ravel()
-                grad[12, s] = det * fp.w0
-            for c in range(n_cols):
-                lo, hi = table.col_start[o * n_cols + c: o * n_cols + c + 2]
-                if lo == hi:
-                    continue
-                acc = np.zeros(T)
-                for p, q, w, dz in table.entries[lo:hi]:
-                    a, i = divmod(p, 3)
-                    b, j = divmod(q, 3)
-                    s = w * W + lane + 1 - dz
-                    ga, gb = grad[3 * a:3 * a + 3, s], grad[3 * b:3 * b + 3, s]
-                    term = fp.lam * (ga[i] * gb[j]) + fp.mu * (ga[j] * gb[i])
-                    if i == j:
-                        term = term + fp.mu * (ga * gb).sum(0)
-                    acc = acc + term * grad[12, s]
-                tile[:, c] += acc
-        rows = min(T, n_nodes - node0)
-        out[node0:node0 + rows] = tile[:rows]
-    return out.reshape(-1, K)
+                g[o, cx, cy, cz] = (fp.dN0 @ cof.T) * (1.0 / det)
+                vol[o, cx, cy, cz] = det * fp.w0
+        for i in range(3):
+            acc = np.zeros((45, B, B, B))
+            for o in range(6):
+                own = np.zeros((3, B, B, B))
+                for a in range(4):
+                    d = kuhn[o][a]  # the node is corner a of the cell at -d
+                    cells = (o, slice(1 - d[0], 1 - d[0] + B),
+                             slice(1 - d[1], 1 - d[1] + B),
+                             slice(1 - d[2], 1 - d[2] + B))
+                    gc, v = g[cells], vol[cells]  # (B, B, B, 4, 3), (B, B, B)
+                    la = lam * v * gc[..., a, i]
+                    ma = [mu * v * gc[..., a, dd] for dd in range(3)]
+                    for b in range(4):
+                        gb = gc[..., b, :]
+                        gm = ma[0] * gb[..., 0] + ma[1] * gb[..., 1] + ma[2] * gb[..., 2]
+                        for j in range(3):
+                            t = la * gb[..., j] + ma[j] * gb[..., i]
+                            if j == i:
+                                t = t + gm
+                            if b == a:
+                                own[j] += t
+                            else:
+                                acc[3 * kfused.slot_of(d, kuhn[o][b]) + j] += t
+                for j in range(3):
+                    acc[3 * self_slot + j] += own[j]
+            out[x0:x0 + B, y0:y0 + B, z0:z0 + B, i] = 0.0  # unreached columns
+            for s in range(45):
+                out[x0:x0 + B, y0:y0 + B, z0:z0 + B, i, table.colk[i, s]] = acc[s]
+    return out[:nx + 1, :ny + 1, :nz + 1].reshape(-1, K)
 
 
-@pytest.mark.parametrize("dims", BOXES)
+@pytest.mark.parametrize("dims", BOXES + [(9, 7, 5), (4, 3, 6)])
 def test_fused_table_and_kernel_rule(dims):
     tm, td, plan = _setup(dims)
     fp = kfused.build_fused_plan(tm, plan, MAT.C)
@@ -198,13 +216,44 @@ def test_fused_table_and_kernel_rule(dims):
     K = td.n_offsets
     assert table is plan.fused_table  # built once per plan
     assert table.n_cols == 3 * K
-    assert table.col_start.shape == (6 * 3 * K + 1,)
-    assert table.col_start[-1] == 864 and (np.diff(table.col_start) >= 0).all()
-    assert table.entries.shape == (864, 4) and table.entries.dtype == np.int32
+    assert table.colk.shape == (3, 45) and table.colk.dtype == np.int32
+    # each row's 45 entries reach distinct columns, exactly the plan's
+    for i in range(3):
+        assert len(set(table.colk[i])) == 45
+        assert set(table.colk[i]) == {k for (ii, k) in plan.groups if ii == i}
     coords = _t(tm.nodes + 0.01 * np.random.default_rng(4).standard_normal(
         tm.nodes.shape))
     ref = fused_assemble_plain(coords, tm, fp.lam, fp.mu, plan).numpy()
     assert _rel(_emulate_kernel(coords, fp), ref) < TOL
+
+
+def test_kernel_source_stencil_matches_table():
+    """The kernel's kuhn() and slot_of() (csrc/structured_fused.cu),
+    read from the source, are KUHN and SLOTS27, from which FusedTable
+    builds the column table the kernel indexes: the host's slot order and
+    the kernel's registers agree."""
+    src = (pathlib.Path(kfused.__file__).parent.parent / "csrc"
+           / "structured_fused.cu").read_text()
+    kuhn_fn = re.search(r"int kuhn\(int o, int a\) \{(.*?)\n\}", src, re.S)
+    words = [int(w, 8) for w in re.findall(r"\b0[0-7]{4}\b", kuhn_fn.group(1))]
+    assert tuple(tuple((w >> (3 * a)) & 7 for a in range(4))
+                 for w in words) == kfused.KUHN
+    slot_fn = re.search(r"int slot_of\(int ca, int cb\) \{(.*?)\n\}", src, re.S)
+    ladder = [(int(v), int(s)) for v, s in
+              re.findall(r"v == (\d+)\s*\?\s*(\d+)", slot_fn.group(1))]
+    assert [s for _, s in ladder] == list(range(len(kfused.SLOTS27)))
+    assert tuple(v for v, _ in ladder) == kfused.SLOTS27
+
+
+def test_fused_table_needs_the_kuhn_box():
+    """The kernel compiles in meshgen.box_tets' Kuhn subdivision: a box
+    whose cells are cut otherwise is refused when the table is built."""
+    tm, td, _ = _setup((3, 2, 2))
+    info = dict(tm.structure)
+    info["kuhn"] = info["kuhn"][1:] + info["kuhn"][:1]  # tets renumbered
+    other = dataclasses.replace(tm, structure=info)
+    with pytest.raises(ValueError, match="Kuhn"):
+        kfused.FusedTable(build_structured_plan(other, td))
 
 
 def test_routes(monkeypatch):
@@ -272,8 +321,7 @@ def test_fused_wrapper_cpu_and_checks():
         kfused.fused_assemble(coords.to(torch.int64), fp)
     with pytest.raises(ValueError, match="unsupported device"):
         kfused.fused_assemble(coords.to("meta"), fp)
-    col_start, entries = fp.table.on("cpu")
-    assert col_start.dtype == entries.dtype == torch.int32
+    assert fp.table.colk.dtype == np.int32 and fp.table.colk.flags.c_contiguous
     # the two-stage pieces it replaces give the same operator
     planes = stiffness_planes(coords, tm, _t(tm.element.dshape_at_gp),
                               _t(tm.element.gauss_weights), None,

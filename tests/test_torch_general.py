@@ -270,8 +270,9 @@ def test_cps3_inp_membrane_matches_jax(tmp_path):
         inp = pkg.read_inp(str(path))
         mat = pkg.material_from_inp(inp.material_type, inp.material_params,
                                     inp.element_type)
+        kw = {"device": "cpu"} if pkg is T else {}
         s = pkg.FEMSystem(pkg.FEMesh(inp.nodes, inp.elements, inp.element),
-                          mat, inp.geometric_nonlinear)
+                          mat, inp.geometric_nonlinear, **kw)
         assert s.solve(inp).success
         _, stress, _ = s.compute_strain_stress()
         syy = np.asarray(stress)[:, :, 1, 1]
@@ -296,10 +297,10 @@ def test_float32_general(monkeypatch, name, solver):
     mat = convert.material_from(make_mat())
     inp = convert.inp_from(_model(mesh))
     cfg = T.SolverConfig(linear_solver=solver, cg_eps=1e-8)
-    s64 = T.FEMSystem(mesh, mat, config=cfg)
+    s64 = T.FEMSystem(mesh, mat, config=cfg, device="cpu")
     monkeypatch.setenv("FEMCY_TPU_X64", "0")
     assert default_dtype() == torch.float32
-    s32 = T.FEMSystem(mesh, mat, config=cfg)
+    s32 = T.FEMSystem(mesh, mat, config=cfg, device="cpu")
     s64.solve(inp)
     s32.solve(inp)
     assert s32.dof.dtype == torch.float32
@@ -351,4 +352,4 @@ def test_unsupported_layouts_raise_value_error(name, cfg):
         F.FEMSystem(jm, jmat, False, F.SolverConfig(**cfg))
     with pytest.raises(ValueError):
         T.FEMSystem(convert.mesh_from(jm), convert.material_from(jmat),
-                    config=T.SolverConfig(**cfg))
+                    config=T.SolverConfig(**cfg), device="cpu")

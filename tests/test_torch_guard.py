@@ -7,6 +7,7 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 
@@ -45,11 +46,13 @@ def test_imports_and_solves_without_jax():
                        {"ini_inc": 1.0, "max_time": 1.0, "min_inc": 1e-5,
                         "max_inc": 1.0})
         s = T.FEMSystem(mesh, T.LinearIsotropic(1000.0, 0.3),
-                        config=T.SolverConfig(linear_solver="cg"))
+                        config=T.SolverConfig(linear_solver="cg"),
+                        device="cpu")
         assert s.solve(inp).success and s._last_cg_iters > 0
         m = T.FEMSystem(mesh, T.LinearIsotropic(1000.0, 0.3),
                         config=T.SolverConfig(linear_solver="cg",
-                                              preconditioner="multigrid"))
+                                              preconditioner="multigrid"),
+                        device="cpu")
         assert m.solve(inp).success and m._last_cg_iters > 0
         assert np.isfinite(s.dof.numpy()).all()
         # the general ELL path, with the native pattern library
@@ -61,7 +64,8 @@ def test_imports_and_solves_without_jax():
         uinp = InpModel(u.nodes, u.elements, "C3D4", {}, {}, {}, ubcs, [],
                         "Elastic", [1000.0, 0.3], False, inp.time_incs)
         g = T.FEMSystem(u, T.LinearIsotropic(1000.0, 0.3),
-                        config=T.SolverConfig(linear_solver="cg"))
+                        config=T.SolverConfig(linear_solver="cg"),
+                        device="cpu")
         assert g.dia is None and loader.get_lib() is not None
         assert g.solve(uinp).success and g._last_cg_iters > 0
         assert not any(m == "jax" or m.startswith(("jax.", "femcy_tpu."))
@@ -95,6 +99,27 @@ def test_cuda_device_raises_without_a_card():
     with pytest.raises(RuntimeError, match="never falls back to the CPU"):
         FEMSystem(meshgen.box_tets(2, 2, 2), LinearIsotropic(1000.0, 0.3),
                   device="cuda")
+
+
+@pytest.mark.parametrize("entry", ["FEMSystem", "StructuredMultigrid"])
+def test_default_device_is_the_card(monkeypatch, entry):
+    """Both entry points default to CUDA: with no card that default raises
+    as an explicit device="cuda" does, and device="cpu" still builds."""
+    from femcy_tpu_torch.solvers.multigrid import StructuredMultigrid
+
+    mesh = meshgen.box_tets(2, 2, 2)
+    mat = LinearIsotropic(1000.0, 0.3)
+    if entry == "FEMSystem":
+        def build(**kw):
+            return FEMSystem(mesh, mat, **kw)
+    else:
+        def build(**kw):
+            return StructuredMultigrid(mesh, mat, np.zeros(mesh.n_dof, bool),
+                                       coarsest_max_dof=10**6, **kw)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="never falls back to the CPU"):
+        build()
+    assert build(device="cpu").device == torch.device("cpu")
 
 
 def test_build_raises_without_nvcc(tmp_path, monkeypatch):

@@ -59,7 +59,8 @@ def _pair(smoother="jacobi", **kw):
                                 **LEVELS, **kw)
     t = tmg.StructuredMultigrid(convert.mesh_from(jm),
                                 convert.material_from(mat), fixed,
-                                smoother=smoother, **LEVELS, **kw)
+                                smoother=smoother, device="cpu", **LEVELS,
+                                **kw)
     return j, t, values, b
 
 
@@ -154,7 +155,7 @@ def test_coarse_spmv_choices():
     for mode in ("auto", "pallas", "slices"):
         mg = tmg.StructuredMultigrid(
             convert.mesh_from(jm), T.LinearIsotropic(1000.0, 0.3), fixed,
-            coarse_spmv=mode, **LEVELS)
+            coarse_spmv=mode, device="cpu", **LEVELS)
         assert (mg.levels[1].spmv_plan is None) == (mode == "slices")
         out[mode] = mg.pcg_solve(torch.from_numpy(values),
                                  torch.from_numpy(b), eps=1e-8)
@@ -164,7 +165,7 @@ def test_coarse_spmv_choices():
     with pytest.raises(ValueError, match="coarse_spmv"):
         tmg.StructuredMultigrid(convert.mesh_from(jm),
                                 T.LinearIsotropic(1000.0, 0.3), fixed,
-                                coarse_spmv="interpret")
+                                coarse_spmv="interpret", device="cpu")
 
 
 def _model(mesh):
@@ -211,7 +212,7 @@ def test_system_multigrid_hierarchy_keyed_on_mask():
     mesh = T.meshgen.box_tets(*DIMS)
     s = T.FEMSystem(mesh, T.LinearIsotropic(1000.0, 0.3),
                     config=T.SolverConfig(preconditioner="multigrid",
-                                          linear_solver="cg"))
+                                          linear_solver="cg"), device="cpu")
     inp = convert.inp_from(_model(F.meshgen.box_tets(*DIMS)))
     s.solve(inp)
     mg = s._mg
@@ -229,14 +230,15 @@ def test_multigrid_rejects_odd_grid():
     with pytest.raises(ValueError):
         tmg.StructuredMultigrid(mesh, T.LinearIsotropic(1000.0, 0.3),
                                 np.zeros(mesh.n_dof, bool),
-                                coarsest_max_dof=100)
+                                coarsest_max_dof=100, device="cpu")
 
 
 def test_system_multigrid_fails_fast_on_uncoarsenable_grid():
     with pytest.raises(ValueError, match="factors of 2"):
         T.FEMSystem(T.meshgen.box_tets(17, 17, 17),
                     T.LinearIsotropic(1000.0, 0.3),
-                    config=T.SolverConfig(preconditioner="multigrid"))
+                    config=T.SolverConfig(preconditioner="multigrid"),
+                    device="cpu")
 
 
 def test_system_multigrid_requires_structured_mesh():
@@ -244,7 +246,8 @@ def test_system_multigrid_requires_structured_mesh():
     mesh = T.FEMesh(mesh.nodes, mesh.elements, mesh.element)  # no structure
     with pytest.raises(ValueError, match="multigrid"):
         T.FEMSystem(mesh, T.LinearIsotropic(1000.0, 0.3),
-                    config=T.SolverConfig(preconditioner="multigrid"))
+                    config=T.SolverConfig(preconditioner="multigrid"),
+                    device="cpu")
     with pytest.raises(ValueError, match="box_tets"):
         tmg.StructuredMultigrid(mesh, T.LinearIsotropic(1000.0, 0.3),
-                                np.zeros(mesh.n_dof, bool))
+                                np.zeros(mesh.n_dof, bool), device="cpu")

@@ -102,7 +102,8 @@ def test_spmv_slices_is_the_plain_path():
     out = {}
     for spmv in ("auto", "slices"):
         s = T.FEMSystem(mesh, T.LinearIsotropic(1000.0, 0.3),
-                        config=T.SolverConfig(linear_solver="cg", spmv=spmv))
+                        config=T.SolverConfig(linear_solver="cg", spmv=spmv),
+                        device="cpu")
         assert (s._spmv is None) == (spmv == "slices")
         s.solve(inp)
         out[spmv] = (s.dof, s._last_cg_iters)
@@ -118,10 +119,10 @@ def test_float32_switch(monkeypatch):
     inp = convert.inp_from(_model(F.meshgen.box_tets(3, 3, 2)))
     mat = T.LinearIsotropic(1000.0, 0.3)
     cfg = T.SolverConfig(linear_solver="direct")
-    s64 = T.FEMSystem(mesh, mat, config=cfg)
+    s64 = T.FEMSystem(mesh, mat, config=cfg, device="cpu")
     monkeypatch.setenv("FEMCY_TPU_X64", "0")
     assert default_dtype() == torch.float32
-    s32 = T.FEMSystem(mesh, mat, config=cfg)
+    s32 = T.FEMSystem(mesh, mat, config=cfg, device="cpu")
     assert s32.dtype == torch.float32 and s64.dtype == torch.float64
     s64.solve(inp)
     s32.solve(inp)
@@ -140,7 +141,8 @@ def test_float32_switch(monkeypatch):
 )
 def test_unported_paths_raise(make, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP slice"):
-        T.FEMSystem(make(), T.LinearIsotropic(1000.0, 0.3), **kw)
+        T.FEMSystem(make(), T.LinearIsotropic(1000.0, 0.3), device="cpu",
+                    **kw)
 
 
 def test_bad_dtype_and_device_raise():
@@ -155,7 +157,7 @@ def test_on_newton_hook_raises():
     silently dropped."""
     mesh = T.meshgen.box_tets(2, 2, 2)
     inp = convert.inp_from(_model(F.meshgen.box_tets(2, 2, 2)))
-    s = T.FEMSystem(mesh, T.LinearIsotropic(1000.0, 0.3))
+    s = T.FEMSystem(mesh, T.LinearIsotropic(1000.0, 0.3), device="cpu")
     with pytest.raises(NotImplementedError, match="Newton"):
         s.solve(inp, on_newton=lambda *a: None)
 
@@ -165,10 +167,11 @@ def test_checkpoint_roundtrip(tmp_path):
     inp = convert.inp_from(_model(F.meshgen.box_tets(2, 2, 2), ini_inc=0.5))
     path = str(tmp_path / "ck")
     cfg = T.SolverConfig(checkpoint_path=path)
-    s = T.FEMSystem(mesh, T.LinearIsotropic(1000.0, 0.3), config=cfg)
+    s = T.FEMSystem(mesh, T.LinearIsotropic(1000.0, 0.3), config=cfg,
+                    device="cpu")
     rep = s.solve(inp)
     assert rep.n_increments == 2
-    r = T.FEMSystem(mesh, T.LinearIsotropic(1000.0, 0.3))
+    r = T.FEMSystem(mesh, T.LinearIsotropic(1000.0, 0.3), device="cpu")
     r.load_checkpoint(path)
     assert torch.equal(r.dof, s.dof) and r.time0 == 1.0 and r.dt == s.dt
 
