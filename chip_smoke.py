@@ -52,17 +52,30 @@ Phases (any failure raises, and the script exits non-zero):
    direct solve.
 7. general kernels: in float32 and float64, on unstructured_box_tets(9)
    and (56) (random node numbering, 0.2-cell jitter, seed 0):
-   - M1 deterministic stiffness scatter kernel vs its plain version (the
-     indexed add of the expanded targets) and, in float64, vs the f64
-     host operator (``assembly_host.assemble_csr_host``; in float32 that
-     reading is printed, not gated: it measures the f32 element math);
-     bit-identical on a rerun;
+   - M1 deterministic stiffness scatter kernel bit for bit equal to its
+     plain version run on the CPU (``Ke.cpu()`` through ``scatter_plain``:
+     the indexed add of the expanded targets, in contribution order) and,
+     in float64, within 1e-12 of the f64 host operator
+     (``assembly_host.assemble_csr_host``; in float32 that reading is
+     printed, not gated: it measures the f32 element math); bit-identical
+     on a rerun;
    - M2 ELL SpMV kernel vs the plain row gather on the operator after
      Dirichlet elimination, x seeded with numpy.
    Tolerances as in phase 3; at NX=56 both timed in turns, M1 also
    against one ``index_add_`` over the int64 dof-level targets and M2
    against cuSPARSE's CSR matvec of the valid slots (both built before
-   the timing).
+   the timing).  Then M1 on both routes, in float32 and float64, bit for
+   bit equal to the CPU plain version on seeded random element
+   stiffnesses, on rect_tris(5, 4), box_hexes(4, 3, 3),
+   box_hexes20(2, 2, 1), box_wedges(2, 2, 2) and a box_hexes(2, 2, 2)
+   with one hex collapsed (an element that names a node twice), each
+   also on a DIA layout of 2^15 + 1 columns (a wide plan: int32 indices,
+   sums kept in the output); on node rows either side of the longest one
+   the kernel sums in shared memory (tet fans whose apex has 682 and 683
+   node slots, triangle fans whose centre has 1536 and 1537); and the
+   general-DIA route at box_hexes(48, 48, 48) on its own element
+   stiffnesses, bit-equal to the CPU plain version and timed in turns
+   with it and with one ``index_add_``, with its own bound.
 8. ELL slice (the general main path): FEMSystem(unstructured_box_tets(56),
    LinearIsotropic(1000, 0.3), SolverConfig(), device="cuda") in float64
    (1,053,696 C3D4 elements, 555,579 dofs; "auto" picks the ELL layout
@@ -85,8 +98,10 @@ Phases (any failure raises, and the script exits non-zero):
    Abaqus text (node sets, *Boundary, a *Surface with a *Dsload
    pressure, *Elastic, *Static), read with read_inp, solved on the card
    with the CG at cg_eps=1e-10 (M1 and M2) against the host direct solve.
-11. print the launch counts of every path, then the kernel table as one
-   JSON line: per kernel, its f64 time and its plain version's, the
+11. print the launch counts and the CG iterations of every path, each
+   beside the count that the deterministic kernels have always given, and
+   fail on another count (a kernel changed its rounding); then the kernel
+   table as one JSON line: per kernel, its f64 time and its plain version's, the
    library call's (null for P3, which no single PyTorch call computes
    from coordinates), its bound (the larger of its bytes over 3.35 TB/s and its
    operations over the f64 peak, from this run's shapes) and the launches
@@ -97,6 +112,7 @@ Phases (any failure raises, and the script exits non-zero):
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -117,6 +133,11 @@ SMALL, FULL = (9, 7, 5), (56, 56, 56)
 UNSTRUCT = (9, 56)
 HEX = (48, 48, 48)
 INP_NX = 12
+#: the CG iterations of each path, as the deterministic kernels have given
+#: them since they were ported; another count means a kernel changed its
+#: rounding
+EXPECTED_CG_ITERS = {"multigrid box": 6, "jacobi box": 257, "ELL slice": 312,
+                     "general-DIA slice": 163, ".inp model, CG": 260}
 
 
 def check(ok: bool, what: str) -> None:
@@ -537,7 +558,7 @@ def boundary_model(mesh, ux: float, element_type: str = "C3D4"):
 
 def slice_run(torch, card, full_ref, preconditioner: str):
     """Phases 5 and 6: the path through FEMSystem with ``preconditioner``.
-    Returns its launch counts."""
+    Returns its launch counts and CG iterations."""
     from femcy_tpu_torch import FEMSystem, LinearIsotropic, SolverConfig
     from femcy_tpu_torch.meshgen import box_tets
     from femcy_tpu_torch.solvers.dia import dia_spmv
@@ -635,7 +656,7 @@ def slice_run(torch, card, full_ref, preconditioner: str):
           f"{time.perf_counter() - t:.4f} s", flush=True)
     del system
     torch.cuda.empty_cache()
-    return launches
+    return launches, iters
 
 
 def small_box_check(torch, dims, preconditioner: str):
@@ -720,15 +741,10 @@ def general_kernel_checks(torch, card, results):
             Ke = assembly.element_stiffness(dsdx, vol, dev(mat.C))
             del dsdx, vol
 
-            # M1: the deterministic scatter
-            v_k = k_scat.scatter(Ke, plan)
-            v_p = k_scat.scatter_plain(Ke, plan)
-            torch.cuda.synchronize()
-            abs1 = float((v_k - v_p).abs().max())
-            rel1 = abs1 / float(v_p.abs().max())
-            check(rel1 <= tol, f"M1 vs plain {nx} {name}: {rel1:.3e}")
-            check(torch.equal(v_k, k_scat.scatter(Ke, plan)),
-                  f"M1 {nx} {name}: rerun not bit-identical")
+            # M1: the deterministic scatter, bit for bit its plain
+            # version on the CPU
+            v_k, abs1 = m1_against_cpu_plain(torch, Ke, plan,
+                                             f"unstructured ({nx}) {name}")
             v_np = v_k.double().cpu().numpy()
             check(not v_np[~pattern.valid].any(), "M1 left padding nonzero")
             rel1h = float(np.abs(v_np.reshape(-1)[pattern.csr_slots] - K.data).max()
@@ -737,7 +753,7 @@ def general_kernel_checks(torch, card, results):
             # tets (Ke is computed in the working dtype), not the scatter's
             if dtype == torch.float64:
                 check(rel1h <= tol, f"M1 vs host operator {nx}: {rel1h:.3e}")
-            del v_p, v_np
+            del v_np
 
             # M2: the ELL SpMV on the eliminated operator
             vals, _ = apply_dirichlet_linear(
@@ -752,17 +768,15 @@ def general_kernel_checks(torch, card, results):
             abs2 = float((y_k - y_p).abs().max())
             rel2 = abs2 / float(y_p.abs().max())
             check(rel2 <= tol, f"M2 vs plain {nx} {name}: {rel2:.3e}")
-            print(f"general kernels ({nx}) {name}: M1 rel err {rel1:.3e} vs "
-                  f"plain, {rel1h:.3e} vs host f64 (gated in float64 only), "
-                  f"bit-identical rerun; M2 "
+            print(f"general kernels ({nx}) {name}: M1 bit-equal to the CPU "
+                  f"plain version, {rel1h:.3e} vs host f64 (gated in float64 "
+                  f"only), bit-identical rerun; M2 "
                   f"rel err {rel2:.3e} vs plain (tol {tol:.0e})", flush=True)
 
             if nx == UNSTRUCT[-1]:
                 # M1's yardstick: one index_add_ over the int64 dof-level
                 # targets, built here, outside the timed window
-                targets = assembly.expand_block_targets(
-                    k_scat.block_targets(plan), plan.node_width, plan.dm,
-                    plan.width, plan.npe)
+                targets = k_scat.contribution_targets(plan)
                 lib_out = torch.zeros(plan.out_shape, dtype=dtype,
                                       device=DEVICE).view(-1)
                 ke_flat = Ke.view(-1)
@@ -772,11 +786,8 @@ def general_kernel_checks(torch, card, results):
                     lambda: lib_out.index_add_(0, targets, ke_flat))
                 del targets, lib_out
                 isz = Ke.element_size()
-                plan_bytes = sum(t.numel() * t.element_size()
-                                 for t in (plan.ptr, plan.ids, plan.out_map)
-                                 if t is not None)
-                b1 = bound((Ke.numel() + v_k.numel()) * isz + plan_bytes,
-                           Ke.numel(), name)
+                b1 = bound((Ke.numel() + v_k.numel()) * isz
+                           + plan_bytes(plan), Ke.numel(), name)
                 # M2's yardstick: cuSPARSE's CSR matvec of the valid slots
                 n, W = vals.shape
                 keep = (torch.arange(W, device=DEVICE)[None]
@@ -809,6 +820,197 @@ def general_kernel_checks(torch, card, results):
     return out
 
 
+def plan_bytes(plan) -> int:
+    """The bytes of M1's plan that the kernel reads."""
+    return sum(t.numel() * t.element_size()
+               for t in (plan.node_ptr, plan.pairs, plan.positions,
+                         plan.dia_columns) if t is not None)
+
+
+def m1_against_cpu_plain(torch, Ke, plan, what: str):
+    """M1 on the card, checked bit for bit against its plain version run
+    on the CPU on the same Ke and against its own rerun.  Returns (values,
+    max abs difference to the CPU plain version)."""
+    from femcy_tpu_torch.kernels import ell_scatter as k_scat
+
+    v_k = k_scat.scatter(Ke, plan)
+    cpu_plan = dataclasses.replace(plan, **{
+        f.name: getattr(plan, f.name).cpu() for f in dataclasses.fields(plan)
+        if isinstance(getattr(plan, f.name), torch.Tensor)})
+    ref = k_scat.scatter_plain(Ke.cpu(), cpu_plan)
+    got = v_k.cpu()
+    abs_err = float((got - ref).abs().max())
+    check(torch.equal(got, ref), f"M1 {what}: not bit-equal to the CPU plain "
+          f"version (max abs difference {abs_err:.3e})")
+    check(torch.equal(v_k, k_scat.scatter(Ke, plan)),
+          f"M1 {what}: rerun not bit-identical")
+    return v_k, abs_err
+
+
+def hub_meshes():
+    """Meshes whose centre node's node-ELL row lies either side of the
+    longest row M1 sums in shared memory (``SHARED_ROW_BYTES``): tet fans
+    over an a x b grid of base nodes (3-D: 682 and 683 slots) and discs of
+    triangles (2-D: 1536 and 1537 slots).  Returns {label: (mesh, slots of
+    the centre's row)}."""
+    from femcy_tpu_torch.mesh import FEMesh
+    from femcy_tpu_torch.meshgen import box_tets, rect_tris
+
+    out = {}
+    for a, b in ((3, 227), (22, 31)):
+        x, y = np.meshgrid(np.arange(a, dtype=float),
+                           np.arange(b, dtype=float), indexing="ij")
+        nodes = np.concatenate([
+            np.stack([x.ravel(), y.ravel(), np.zeros(a * b)], 1),
+            [[a / 2, b / 2, 1.0]]])
+        g = np.arange(a * b).reshape(a, b)
+        c00, c10 = g[:-1, :-1].ravel(), g[1:, :-1].ravel()
+        c11, c01 = g[1:, 1:].ravel(), g[:-1, 1:].ravel()
+        tris = np.concatenate([np.stack([c00, c10, c11], 1),
+                               np.stack([c00, c11, c01], 1)])
+        apex = np.full((tris.shape[0], 1), a * b)
+        out[f"tet fan over {a} x {b}"] = (FEMesh(
+            nodes, np.concatenate([tris, apex], 1),
+            box_tets(1, 1, 1).element), a * b + 1)
+    for n_ring in (1535, 1536):
+        angle = np.linspace(0.0, 2.0 * np.pi, n_ring, endpoint=False)
+        nodes = np.concatenate([[[0.0, 0.0]],
+                                np.stack([np.cos(angle), np.sin(angle)], 1)])
+        ring = np.arange(1, n_ring + 1)
+        elements = np.stack([np.zeros(n_ring, np.int64), ring,
+                             np.roll(ring, -1)], 1)
+        out[f"triangle fan of {n_ring}"] = (FEMesh(
+            nodes, elements, rect_tris(1, 1).element), n_ring + 1)
+    return out
+
+
+def scatter_route_checks(torch, card):
+    """Phase 7, M1's other routes.  Returns the f64 row of its
+    general-DIA route at HEX."""
+    from femcy_tpu_torch import assembly
+    from femcy_tpu_torch.kernels import ell_scatter as k_scat
+    from femcy_tpu_torch.materials import LinearIsotropic
+    from femcy_tpu_torch.mesh import FEMesh
+    from femcy_tpu_torch.meshgen import (
+        box_hexes,
+        box_hexes20,
+        box_wedges,
+        rect_tris,
+    )
+    from femcy_tpu_torch.solvers.dia import build_dia_pattern
+    from femcy_tpu_torch.topology import build_pattern
+
+    def both_types(plan, Ke_np, what):
+        for dtype in (torch.float32, torch.float64):
+            m1_against_cpu_plain(torch, torch.as_tensor(
+                Ke_np, dtype=dtype, device=DEVICE), plan, f"{what} {dtype}")
+
+    collapsed = box_hexes(2, 2, 2)
+    elements = collapsed.elements.copy()
+    elements[0, 7] = elements[0, 6]  # the box's centre node, named twice
+    collapsed = FEMesh(collapsed.nodes, elements, collapsed.element)
+    # every instantiation of the kernel: dm 2 and 3, 1 to 6 rounds of 32
+    # band values, and wide plans (2^15 + 1 DIA columns: int32 indices,
+    # sums kept in the output)
+    meshes = {"rect_tris(5, 4)": rect_tris(5, 4),
+              "box_hexes(4, 3, 3)": box_hexes(4, 3, 3),
+              "box_hexes20(2, 2, 1)": box_hexes20(2, 2, 1),
+              "box_wedges(2, 2, 2)": box_wedges(2, 2, 2),
+              "collapsed hex": collapsed}
+    for label, mesh in meshes.items():
+        pattern = build_pattern(mesh)
+        edof = mesh.element.n_nodes * mesh.dm
+        Ke_np = np.random.default_rng(4).standard_normal(
+            (mesh.n_elements, edof, edof))
+        for layout in ("ell", "dia", "wide dia"):
+            dia = (build_dia_pattern(mesh, ell=pattern) if layout != "ell"
+                   else None)
+            check(layout == "ell" or dia is not None, f"{label}: no DIA layout")
+            if layout == "wide dia":
+                lo = min(dia.offsets)
+                offsets = tuple(sorted(set(dia.offsets)
+                                       | set(range(lo, lo + 2**15 + 1))))
+                dia = dataclasses.replace(dia, offsets=offsets,
+                                          diag_idx=offsets.index(0))
+            plan = k_scat.build_scatter_plan(pattern, DEVICE, dia=dia)
+            check(plan.wide == (layout == "wide dia"),
+                  f"{label} {layout}: plan.wide is {plan.wide}")
+            flagged = int((plan.pairs < 0).sum())
+            check((flagged > 0) == (mesh is collapsed),
+                  f"{label}: {flagged} pairs flagged as naming a node twice")
+            both_types(plan, Ke_np, f"{label} {layout}")
+            print(f"M1 on {label}, {layout} route ({plan.out_shape[1]} "
+                  f"columns, {flagged} flagged pairs): bit-equal "
+                  "to the CPU plain version in float32 and float64, "
+                  "bit-identical reruns", flush=True)
+            del plan
+
+    # node rows either side of the longest one kept in shared memory
+    for label, (mesh, slots) in hub_meshes().items():
+        plan = k_scat.build_scatter_plan(build_pattern(mesh), DEVICE)
+        wide = slots > k_scat.SHARED_ROW_BYTES // (8 * mesh.dm * mesh.dm)
+        check(plan.node_width == slots and plan.wide == wide,
+              f"{label}: node width {plan.node_width}, wide {plan.wide}")
+        edof = mesh.element.n_nodes * mesh.dm
+        both_types(plan, np.random.default_rng(5).standard_normal(
+            (mesh.n_elements, edof, edof)), label)
+        print(f"M1 on {label}, ell route (a {slots}-slot node row, "
+              f"{'wide' if wide else 'in shared memory'}): bit-equal to the "
+              "CPU plain version in float32 and float64, bit-identical "
+              "reruns", flush=True)
+        del plan
+
+    mat = LinearIsotropic(1000.0, 0.3)
+    mesh = box_hexes(*HEX)
+    pattern = build_pattern(mesh)
+    dia = build_dia_pattern(mesh, ell=pattern)
+    check(dia is not None, f"box_hexes{HEX}: no DIA layout")
+    plan = k_scat.build_scatter_plan(pattern, DEVICE, dia=dia)
+    out = None
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[1]
+
+        def dev(a):
+            return torch.as_tensor(np.asarray(a), dtype=dtype, device=DEVICE)
+
+        dsdx, vol = assembly.gradients_and_volume(
+            dev(mesh.nodes), torch.as_tensor(mesh.elements.astype(np.int64),
+                                             device=DEVICE),
+            dev(mesh.element.dshape_at_gp), dev(mesh.element.gauss_weights))
+        Ke = assembly.element_stiffness(dsdx, vol, dev(mat.C))
+        del dsdx, vol
+        v_k, abs1 = m1_against_cpu_plain(torch, Ke, plan,
+                                         f"box_hexes{HEX} dia {name}")
+        # the yardstick: one index_add_ over the int64 DIA targets, built
+        # here, outside the timed window
+        targets = k_scat.contribution_targets(plan)
+        lib_out = torch.zeros(plan.out_shape, dtype=dtype,
+                              device=DEVICE).view(-1)
+        ke_flat = Ke.view(-1)
+        lib_out.index_add_(0, targets, ke_flat)
+        check(float((lib_out.view(plan.out_shape) - v_k).abs().max())
+              <= TOL[name] * float(v_k.abs().max()),
+              "M1's DIA index_add_ yardstick disagrees")
+        ms, pms, lms = in_turns(
+            lambda: k_scat.scatter_plain(Ke, plan),
+            lambda: k_scat.scatter(Ke, plan), 3, 10,
+            lambda: lib_out.index_add_(0, targets, ke_flat))
+        del targets, lib_out
+        b = bound((Ke.numel() + v_k.numel()) * Ke.element_size()
+                  + plan_bytes(plan), Ke.numel(), name)
+        print(f"timing box_hexes{HEX} {name} on {card}: M1 ell_scatter "
+              f"kernel, general-DIA route (K = {dia.n_offsets}) {ms:.4f} ms, "
+              f"plain {pms:.4f} ms, index_add_ {lms:.4f} ms, bound "
+              f"{b[0]:.4f} ms ({b[1]}), plan {plan_bytes(plan)} bytes",
+              flush=True)
+        if dtype == torch.float64:
+            out = row(abs1, ms, pms, lms, b)
+        del Ke, v_k
+    del plan
+    torch.cuda.empty_cache()
+    return out
+
+
 def solution_checks(torch, system, mesh, plain_spmv):
     """||A x - b||_inf against cg_eps * ||b||_inf with the plain SpMV of
     the layout, and the prescribed ux of the top face within the residual
@@ -835,7 +1037,8 @@ def solution_checks(torch, system, mesh, plain_spmv):
 
 def general_slice_run(torch, card, mesh, layout: str, host_K):
     """Phases 8 and 9: ``mesh`` through FEMSystem with the default config
-    on the card, which must pick ``layout``.  Returns the launch counts."""
+    on the card, which must pick ``layout``.  Returns the launch counts and
+    CG iterations."""
     from femcy_tpu_torch import FEMSystem, LinearIsotropic
     from femcy_tpu_torch.kernels import ell_scatter as k_scat
     from femcy_tpu_torch.solvers.cg import ell_spmv
@@ -960,7 +1163,7 @@ def general_slice_run(torch, card, mesh, layout: str, host_K):
           f"Timer {warm}", flush=True)
     del system
     torch.cuda.empty_cache()
-    return launches
+    return launches, iters
 
 
 def inp_text(mesh) -> str:
@@ -998,7 +1201,7 @@ def inp_text(mesh) -> str:
 
 def inp_run(torch):
     """Phase 10: the user's entry point on a general .inp model.  Returns
-    the launch counts of its CG solve."""
+    the launch counts and iterations of its CG solve."""
     import tempfile
 
     from femcy_tpu_torch import (
@@ -1042,7 +1245,7 @@ def inp_run(torch):
           f"C3D4, {mesh.n_dof} dofs, *Dsload on {len(inp.neumann_bcs[0].face_set)}"
           f" facets): CG (cg_eps 1e-10, {iters} iterations, M2 launched "
           f"{m2} times) vs host direct solve rel err {rel:.3e}", flush=True)
-    return cg_launches
+    return cg_launches, iters
 
 
 def main() -> int:
@@ -1065,10 +1268,13 @@ def main() -> int:
     full_ref = kernel_checks(torch, card, results)
     coarse_spmv_checks(torch)
     p2_launches = two_stage_run(torch, full_ref)
-    launches = slice_run(torch, card, full_ref, "multigrid")
+    iters = {}
+    launches, iters["multigrid box"] = slice_run(torch, card, full_ref,
+                                                 "multigrid")
     by_path = {"multigrid box": dict(launches)}
     small_box_check(torch, (8, 8, 8), "multigrid")
-    by_path["jacobi box"] = slice_run(torch, card, full_ref, "jacobi")
+    by_path["jacobi box"], iters["jacobi box"] = slice_run(
+        torch, card, full_ref, "jacobi")
     small_box_check(torch, SMALL, "jacobi")
     launches["structured_accumulate"] = p2_launches
     by_path["two-stage box assembly"] = {"structured_accumulate": p2_launches}
@@ -1080,8 +1286,9 @@ def main() -> int:
     from femcy_tpu_torch.topology import build_pattern
 
     host_K = general_kernel_checks(torch, card, results)
-    ell = general_slice_run(torch, card, unstructured_box_tets(UNSTRUCT[-1]),
-                            "ell", host_K)
+    m1_dia = scatter_route_checks(torch, card)
+    ell, iters["ELL slice"] = general_slice_run(
+        torch, card, unstructured_box_tets(UNSTRUCT[-1]), "ell", host_K)
     by_path["ELL slice"] = ell
     del host_K
     launches["ell_scatter"] = ell["ell_scatter"]
@@ -1092,13 +1299,21 @@ def main() -> int:
                               LinearIsotropic(1000.0, 0.3).C)
     print(f"general-DIA slice: f64 host operator of box_hexes{HEX} in "
           f"{time.perf_counter() - t:.3f} s", flush=True)
-    by_path["general-DIA slice"] = general_slice_run(torch, card, hexes, "dia",
-                                                     hex_K)
+    by_path["general-DIA slice"], iters["general-DIA slice"] = (
+        general_slice_run(torch, card, hexes, "dia", hex_K))
     del hex_K
-    by_path[".inp model, CG"] = inp_run(torch)
+    by_path[".inp model, CG"], iters[".inp model, CG"] = inp_run(torch)
     print("launches per solve, by path: " + json.dumps(
         {path: {k: v for k, v in counts.items() if v}
          for path, counts in by_path.items()}), flush=True)
+    print("CG iterations by path (expected): " + ", ".join(
+        f"{path} {iters[path]} ({want})"
+        for path, want in EXPECTED_CG_ITERS.items()), flush=True)
+    for path, want in EXPECTED_CG_ITERS.items():
+        check(iters[path] == want, f"{path}: {iters[path]} CG iterations, "
+              f"{want} expected (a kernel changed its rounding)")
+    print(f"M1 on the general-DIA route at box_hexes{HEX}, float64: "
+          + json.dumps(m1_dia), flush=True)
 
     source = {
         "dia_spmv": ("femcy_tpu_torch/csrc/dia_spmv.cu",

@@ -8,9 +8,14 @@ general-DIA layout), called from ``system._scatter`` (:583-596) -- with
 one gather-form kernel and no atomics: element stiffnesses (E, edof, edof)
 -> values (n_dof, W) on the ELL layout or (n_dof, K) on the DIA layout.
 
-``build_scatter_plan`` inverts the node-block scatter map once per
-pattern on the host (a stable argsort of ``ELLPattern.block_targets``:
-each node-ELL slot's contributions in element order) and uploads it.
+``build_scatter_plan`` inverts the element-node map once per pattern on
+the host (a stable argsort of the pairs' nodes: each node's element-node
+pairs in element order), stores each pair's node-ELL positions and, on
+the DIA layout, the DIA column of every ELL slot, and uploads them.  The
+kernel walks one node row per warp over those pairs (see the source),
+summing in shared memory; a plan with a longer row than that holds, or
+with more than 2^15 DIA columns, is wide, and the kernel sums in the
+output instead, so every pattern is accepted.
 ``scatter`` launches the kernel for CUDA tensors and raises if it cannot;
 for CPU tensors, and only for them, it runs the plain version
 (``scatter_plain``: the indexed add of the expanded targets).
@@ -28,13 +33,20 @@ import torch
 
 from femcy_tpu_torch.assembly import expand_block_targets, scatter_stiffness
 from femcy_tpu_torch.kernels import _build
-from femcy_tpu_torch.solvers.dia import DIAPattern, ell_to_dia_slots
+from femcy_tpu_torch.solvers.dia import DIAPattern, ell_to_dia_columns
 from femcy_tpu_torch.topology import ELLPattern
 
 _ENTRY = {torch.float32: "femcy_ell_scatter_f32",
           torch.float64: "femcy_ell_scatter_f64"}
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [
-    ctypes.c_void_p]
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+#: a lane of the kernel takes at most this many values of a band (32 lanes
+#: each): dm * dm * npe <= 256
+_MAX_ROUNDS = 8
+#: the longest node row (dm * W values, reckoned at 8 bytes) that the kernel
+#: sums in shared memory (kRowBytes in csrc/ell_scatter.cu); a plan with a
+#: longer row, or with more than 2^15 DIA columns, is wide
+SHARED_ROW_BYTES = 48 * 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,24 +60,41 @@ class ScatterPlan:
     n_elements: int
     #: (n_dof, W) on the ELL layout, (n_dof, K) on the DIA layout
     out_shape: Tuple[int, int]
-    #: (n_nodes * node_width + 1,) int64: node slot -> start in ``ids``
-    ptr: torch.Tensor
-    #: (E * npe * npe,) int32 contributions (e * npe + a) * npe + b, grouped
-    #: by node slot, ascending within each
-    ids: torch.Tensor
-    #: (n_dof * W,) int64 flat DIA slot of each flat ELL slot, -1 on
-    #: padding; None on the ELL layout
-    out_map: Optional[torch.Tensor] = None
+    #: (n_nodes + 1,) int64: node n's pairs are pairs[node_ptr[n]:node_ptr[n+1]]
+    node_ptr: torch.Tensor
+    #: (E * npe,) int32: the element-node pairs p = e * npe + a with
+    #: elements[e, a] == n, grouped by node n, ascending within each;
+    #: stored as ~p (negative) where element e names one node twice
+    pairs: torch.Tensor
+    #: (E * npe * npe,) int16 (int32 if wide): at t * npe + b, the position
+    #: of elements[e, b] in the node-ELL row of pair t's node
+    positions: torch.Tensor
+    #: (n_dof * W,) int16 (int32 if wide): the DIA column k in [0, K) of
+    #: each flat ELL slot, -1 on padding; None on the ELL layout
+    dia_columns: Optional[torch.Tensor] = None
+    #: a node row longer than SHARED_ROW_BYTES or more than 2^15 DIA
+    #: columns: the kernel sums in the output itself, over int32 indices
+    wide: bool = False
 
 
-def block_inverse(block_targets: np.ndarray, n_node_slots: int):
-    """(ptr, ids): the contributions of each node slot, in ascending order
-    (the stable argsort of the block map), in CSR form."""
-    ids = np.argsort(block_targets, kind="stable").astype(np.int32)
-    counts = np.bincount(block_targets, minlength=n_node_slots)
-    ptr = np.zeros(n_node_slots + 1, dtype=np.int64)
-    np.cumsum(counts, out=ptr[1:])
-    return ptr, ids
+def node_pairs(block_targets: np.ndarray, node_width: int, npe: int,
+               n_nodes: int):
+    """The inverse of the element-node map from the node-block map.
+
+    Returns (node_ptr, pairs, positions, flagged): per node, its pairs
+    p = e * npe + a in ascending p (the stable argsort of the pairs' nodes,
+    CSR form), each pair's (npe,) node-ELL positions in pair order, and
+    whether the pair's element names one node twice (two b with one
+    position)."""
+    bt = block_targets.reshape(-1, npe)
+    node = bt[:, 0] // node_width
+    pairs = np.argsort(node, kind="stable").astype(np.int32)
+    node_ptr = np.zeros(n_nodes + 1, dtype=np.int64)
+    np.cumsum(np.bincount(node, minlength=n_nodes), out=node_ptr[1:])
+    positions = (bt % node_width)[pairs]
+    srt = np.sort(positions, axis=1)
+    flagged = (srt[:, 1:] == srt[:, :-1]).any(axis=1)
+    return node_ptr, pairs, positions, flagged
 
 
 def build_scatter_plan(pattern: ELLPattern, device,
@@ -81,15 +110,23 @@ def build_scatter_plan(pattern: ELLPattern, device,
     dm = pattern.width // pattern.node_width
     if npe * npe * E != bt.shape[0] or dm * pattern.node_width != pattern.width:
         raise ValueError("block map does not match the pattern's shapes")
-    if bt.shape[0] >= 2**31:
-        raise ValueError("more than 2^31 node-pair contributions")
-    n_node_slots = (pattern.n_dof // dm) * pattern.node_width
-    ptr, ids = block_inverse(bt, n_node_slots)
-    out_map = None
+    if E * npe >= 2**31:
+        raise ValueError("more than 2^31 element-node pairs")
+    if npe > 32 or dm * dm * npe > 32 * _MAX_ROUNDS:
+        raise ValueError(f"elements of {npe} nodes are not supported")
+    node_ptr, pairs, positions, flagged = node_pairs(
+        bt, pattern.node_width, npe, pattern.n_dof // dm)
+    pairs[flagged] = ~pairs[flagged]
+    # a short row has at most 6144 / dm^2 node slots: int16 holds its
+    # positions
+    wide = (dm * pattern.width * 8 > SHARED_ROW_BYTES
+            or (dia is not None and dia.n_offsets > 2**15))
+    index = np.int32 if wide else np.int16
+    dia_columns = None
     out_shape = (pattern.n_dof, pattern.width)
     if dia is not None:
-        out_map = torch.as_tensor(ell_to_dia_slots(pattern, dia.offsets),
-                                  device=device)
+        dia_columns = torch.as_tensor(
+            ell_to_dia_columns(pattern, dia.offsets, index), device=device)
         out_shape = (pattern.n_dof, dia.n_offsets)
     return ScatterPlan(
         n_dof=pattern.n_dof,
@@ -99,34 +136,48 @@ def build_scatter_plan(pattern: ELLPattern, device,
         npe=npe,
         n_elements=E,
         out_shape=out_shape,
-        ptr=torch.as_tensor(ptr, device=device),
-        ids=torch.as_tensor(ids, device=device),
-        out_map=out_map,
+        node_ptr=torch.as_tensor(node_ptr, device=device),
+        pairs=torch.as_tensor(pairs, device=device),
+        positions=torch.as_tensor(positions.reshape(-1).astype(index),
+                                  device=device),
+        dia_columns=dia_columns,
+        wide=wide,
     )
 
 
 def block_targets(plan: ScatterPlan):
-    """The node-block map (E * npe * npe,) int64, recovered from the plan's
-    inverse: contribution ids[j] goes to the node slot whose range in
-    ``ptr`` holds j."""
-    counts = plan.ptr.diff()
-    slots = torch.repeat_interleave(
+    """The node-block map (E * npe * npe,) int64, recovered from the plan:
+    entry (p, b) of pair p = e * npe + a, which the plan lists under node
+    n at t, is n * node_width + positions[t * npe + b]."""
+    counts = plan.node_ptr.diff()
+    node = torch.repeat_interleave(
         torch.arange(counts.shape[0], device=counts.device), counts,
-        output_size=plan.ids.shape[0])
-    bt = torch.empty_like(slots)
-    bt[plan.ids.long()] = slots
-    return bt
+        output_size=plan.pairs.shape[0])
+    p = plan.pairs.long()
+    p = torch.where(p < 0, ~p, p)
+    bt = torch.empty((p.shape[0], plan.npe), dtype=torch.long,
+                     device=p.device)
+    bt[p] = (node[:, None] * plan.node_width
+             + plan.positions.view(-1, plan.npe).long())
+    return bt.reshape(-1)
+
+
+def contribution_targets(plan: ScatterPlan):
+    """The flat int64 output slot of every Ke entry, in Ke layout order:
+    the expanded dof-level targets, remapped to the DIA slots on the DIA
+    layout."""
+    targets = expand_block_targets(block_targets(plan), plan.node_width,
+                                   plan.dm, plan.width, plan.npe)
+    if plan.dia_columns is not None:
+        targets = ((targets // plan.width) * plan.out_shape[1]
+                   + plan.dia_columns[targets].long())
+    return targets
 
 
 def scatter_plain(Ke, plan: ScatterPlan):
-    """The plain version: an indexed add of Ke over the expanded dof-level
-    targets (remapped to the DIA slots on the DIA layout), in contribution
-    order -- femcy_tpu's segment-sum."""
-    targets = expand_block_targets(block_targets(plan), plan.node_width,
-                                   plan.dm, plan.width, plan.npe)
-    if plan.out_map is not None:
-        targets = plan.out_map[targets]
-    return scatter_stiffness(Ke, targets, *plan.out_shape)
+    """The plain version: an indexed add of Ke over its contribution
+    targets, in contribution order -- femcy_tpu's segment-sum."""
+    return scatter_stiffness(Ke, contribution_targets(plan), *plan.out_shape)
 
 
 def scatter(Ke, plan: ScatterPlan):
@@ -138,10 +189,10 @@ def scatter(Ke, plan: ScatterPlan):
         )
     if Ke.dtype not in _ENTRY:
         raise TypeError(f"Ke must be float32 or float64, got {Ke.dtype}")
-    if Ke.device != plan.ptr.device:
+    if Ke.device != plan.node_ptr.device:
         raise ValueError(
             f"Ke and the plan must share a device, got {Ke.device} and "
-            f"{plan.ptr.device}"
+            f"{plan.node_ptr.device}"
         )
     if not Ke.is_contiguous():
         raise ValueError("Ke must be contiguous")
@@ -151,18 +202,16 @@ def scatter(Ke, plan: ScatterPlan):
         raise ValueError(f"unsupported device {Ke.device}")
 
     fn = _build.entry(_ENTRY[Ke.dtype], _ARGTYPES)
-    if plan.out_map is None:
-        out = torch.empty(plan.out_shape, dtype=Ke.dtype, device=Ke.device)
-        out_map = None
-    else:
-        # DIA slots no ELL slot maps to stay 0
-        out = torch.zeros(plan.out_shape, dtype=Ke.dtype, device=Ke.device)
-        out_map = plan.out_map.data_ptr()
-    n_slots = plan.ptr.shape[0] - 1
+    # every value is written by the kernel, padding and unmapped DIA
+    # columns included
+    out = torch.empty(plan.out_shape, dtype=Ke.dtype, device=Ke.device)
+    cols = plan.dia_columns
     _build.launch(fn, Ke.device, "ell_scatter kernel launch", Ke.data_ptr(),
-                  plan.ptr.data_ptr(), plan.ids.data_ptr(), out_map,
-                  out.data_ptr(), n_slots, plan.node_width, plan.width,
-                  plan.npe, plan.dm)
+                  plan.node_ptr.data_ptr(), plan.pairs.data_ptr(),
+                  plan.positions.data_ptr(),
+                  None if cols is None else cols.data_ptr(), int(plan.wide),
+                  out.data_ptr(), plan.node_ptr.shape[0] - 1, plan.width,
+                  plan.out_shape[1], plan.npe, plan.dm)
     scatter.launches += 1
     return out
 

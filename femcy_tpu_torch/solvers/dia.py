@@ -52,7 +52,7 @@ class DIAPattern:
         """The dof-level scatter map into the DIA slots, derived from the
         ELL pattern's on first use.  Only the plain ``dia_scatter`` reads
         it; the device assembly goes through kernels/ell_scatter's
-        node-block plan."""
+        row-band plan."""
         if self.scatter_targets is None:
             if self.ell is None:
                 raise ValueError("pattern has no scatter map (structured)")
@@ -127,15 +127,25 @@ def build_structured_dia_pattern(mesh: FEMesh) -> DIAPattern:
     )
 
 
+def ell_to_dia_columns(ell: ELLPattern, offsets, dtype=np.int64) -> np.ndarray:
+    """(n_dof * width,) ``dtype``: the DIA column k (the index of its
+    (col - row) in ``offsets``) of each flat ELL slot, -1 on padding
+    slots.  ``offsets`` must hold every (col - row) of the ELL pattern."""
+    offsets = np.asarray(offsets, dtype=np.int64)
+    rows = np.repeat(np.arange(ell.n_dof, dtype=np.int64), ell.row_counts)
+    cols = np.full(ell.n_dof * ell.width, -1, dtype=dtype)
+    cols[ell.csr_slots] = np.searchsorted(
+        offsets, ell.csr_indices.astype(np.int64) - rows)
+    return cols
+
+
 def ell_to_dia_slots(ell: ELLPattern, offsets) -> np.ndarray:
     """(n_dof * width,) int64: the flat DIA slot (row * K + k) of each flat
     ELL slot, -1 on padding slots.  ``offsets`` must hold every (col - row)
     of the ELL pattern."""
-    offsets = np.asarray(offsets, dtype=np.int64)
-    rows = np.repeat(np.arange(ell.n_dof, dtype=np.int64), ell.row_counts)
-    offidx = np.searchsorted(offsets, ell.csr_indices.astype(np.int64) - rows)
-    ell2dia = np.full(ell.n_dof * ell.width, -1, dtype=np.int64)
-    ell2dia[ell.csr_slots] = rows * offsets.shape[0] + offidx
+    ell2dia = ell_to_dia_columns(ell, offsets)
+    slots = ell.csr_slots.astype(np.int64)
+    ell2dia[slots] += (slots // ell.width) * len(offsets)
     return ell2dia
 
 

@@ -2,13 +2,13 @@
 pattern (native and numpy routes), the general DIA pattern, the plain
 scatters, the ELL Dirichlet elimination, the ELL SpMV and PCG, the host
 operator, and the two kernel wrappers' CPU behaviour with numpy
-emulations of the kernels (M1 scatter, M2 SpMV).
+emulations of the kernels (M1's row-band walk, M2 SpMV).
 
 Tolerances: pattern arrays are integers and equal exactly.  Scatters sum
 the same contributions in the same (element) order, so they agree with
-femcy_tpu's segment-sum to 1e-15 relative and the M1 emulation with the
-plain version exactly.  ELL SpMVs sum a row in another order: 1e-13
-relative to the largest entry.  PCG: equal iteration counts and x within
+femcy_tpu's segment-sum to 1e-15 relative, and the M1 row-band walk with
+the plain version and with femcy_tpu's segment-sum exactly.  ELL SpMVs
+sum a row in another order: 1e-13 relative to the largest entry.  PCG: equal iteration counts and x within
 1e-10 relative (f64 dot products in another order move x by roundoff, far
 below cg_eps).
 """
@@ -23,6 +23,7 @@ import torch
 from femcy_tpu import assembly as jasm
 from femcy_tpu import assembly_host as jhost
 from femcy_tpu import bc as jbc
+from femcy_tpu import mesh as jmesh
 from femcy_tpu import meshgen as jmg
 from femcy_tpu.solvers import cg as jcg
 from femcy_tpu.solvers import dia as jdia
@@ -275,69 +276,223 @@ def test_plain_scatters_match_jax(name):
         assert _rel(dt, dj) < 1e-15
 
 
-def _emulate_scatter(Ke, plan):
-    """The M1 kernel's rule in numpy: one node slot at a time, its list of
-    contributions walked in order into DM x DM sums, written to the ELL
-    slot or through out_map."""
-    ptr, ids = plan.ptr.numpy(), plan.ids.numpy()
-    dm, npe, W, nw = plan.dm, plan.npe, plan.width, plan.node_width
-    out = np.zeros(plan.out_shape).reshape(-1)
-    out_map = None if plan.out_map is None else plan.out_map.numpy()
-    for q in range(ptr.shape[0] - 1):
-        n, pos = divmod(q, nw)
-        acc = np.zeros((dm, dm))
-        for c in ids[ptr[q]:ptr[q + 1]]:
-            e, ab = divmod(int(c), npe * npe)
-            a, b = divmod(ab, npe)
-            acc += Ke[e, a * dm:(a + 1) * dm, b * dm:(b + 1) * dm]
-        for di in range(dm):
-            for dj in range(dm):
-                s = (n * dm + di) * W + pos * dm + dj
-                if out_map is None:
-                    out[s] = acc[di, dj]
-                elif out_map[s] >= 0:
-                    out[out_map[s]] = acc[di, dj]
-    return out.reshape(plan.out_shape)
+def _collapsed_hexes():
+    """box_hexes(2, 2, 2) with one hex collapsed: its local node 7 is
+    replaced by its node 6 (the box's centre), so the element names one
+    node twice; the replaced corner stays in three other hexes."""
+    jm = jmg.box_hexes(2, 2, 2)
+    elements = np.array(jm.elements)
+    assert np.bincount(elements.ravel())[elements[0, 7]] > 1
+    elements[0, 7] = elements[0, 6]
+    jm = jmesh.FEMesh(jm.nodes, elements, jm.element)
+    return jm, convert.mesh_from(jm)
+
+
+def _row_band_walk(Ke, plan):
+    """The M1 kernel's rule in numpy: one node row at a time, zeroed, its
+    pairs walked in order, each pair's band Ke[e, a*dm:(a+1)*dm, :] added
+    into the slots (di, pos_b, dj) -- one b at a time where the element
+    names a node twice -- then, on the DIA layout, each ELL value moved to
+    its DIA column in a zeroed DIA row.  A wide plan on the DIA layout sums
+    straight into the zeroed DIA row, each value at its slot's column."""
+    ptr, pairs = plan.node_ptr.numpy(), plan.pairs.numpy()
+    pos = plan.positions.numpy().astype(np.int64).reshape(-1, plan.npe)
+    dm, npe, W = plan.dm, plan.npe, plan.width
+    cols = None if plan.dia_columns is None else plan.dia_columns.numpy()
+    in_dia = plan.wide and cols is not None
+    out = np.empty(plan.out_shape, dtype=Ke.dtype)
+    di = np.arange(dm)[:, None]
+    for n in range(ptr.shape[0] - 1):
+        k = (None if cols is None else
+             cols[n * dm * W:(n + 1) * dm * W].reshape(dm, W).astype(np.int64))
+        row = np.zeros((dm, plan.out_shape[1] if in_dia else W), Ke.dtype)
+        for t in range(ptr[n], ptr[n + 1]):
+            p = int(pairs[t])
+            e, a = divmod(~p if p < 0 else p, npe)
+            band = Ke[e, a * dm:(a + 1) * dm].reshape(dm, npe, dm)
+            slots = pos[t][:, None] * dm + np.arange(dm)  # (b, dj)
+            # (di, b, dj): where each value of the band is summed
+            at = k[:, slots] if in_dia else np.broadcast_to(slots, band.shape)
+            if p < 0:
+                for b in range(npe):
+                    row[di, at[:, b]] += band[:, b]
+            else:
+                row[di[..., None], at] += band
+        rows = slice(n * dm, (n + 1) * dm)
+        if cols is None or in_dia:
+            out[rows] = row
+            continue
+        dia_row = np.zeros((dm, plan.out_shape[1]), dtype=Ke.dtype)
+        for d in range(dm):
+            dia_row[d, k[d][k[d] >= 0]] = row[d][k[d] >= 0]
+        out[rows] = dia_row
+    return out
+
+
+def _jax_scatter(jm, Ke, layout, offsets=None):
+    """femcy_tpu's plain scatter of Ke into ``layout``; on the DIA layout,
+    its columns placed among ``offsets`` (by default its own)."""
+    jp = j_build_pattern(jm)
+    if layout == "ell":
+        return np.asarray(jasm.scatter_stiffness_blocks(
+            jnp.asarray(Ke), jnp.asarray(jp.block_targets), jp.n_dof,
+            jp.width, jp.node_width, jm.dm))
+    jd = jdia.build_dia_pattern(jm, ell=jp)
+    vals = np.asarray(jdia.dia_scatter(jnp.asarray(Ke),
+                                       jnp.asarray(jd.scatter_targets),
+                                       jd.n_dof, jd.n_offsets))
+    if offsets is None:
+        return vals
+    out = np.zeros((jd.n_dof, len(offsets)), vals.dtype)
+    out[:, np.searchsorted(offsets, jd.offsets)] = vals
+    return out
+
+
+def _check_row_band_walk(jm, tm, layout, offsets=None):
+    """The row-band walk is bit-equal to the wrapper's plain version and
+    to femcy_tpu's plain scatter, in f32 and f64; the CPU wrapper counts
+    no launch.  On the DIA layout ``offsets`` replaces the pattern's own
+    (a superset of them).  Returns the plan."""
+    tp = build_pattern(tm)
+    dia = tdia.build_dia_pattern(tm, ell=tp) if layout == "dia" else None
+    assert layout == "ell" or dia is not None
+    if offsets is not None:
+        assert set(dia.offsets) <= set(offsets)
+        dia = dataclasses.replace(dia, offsets=tuple(offsets),
+                                  diag_idx=list(offsets).index(0))
+    plan = kscat.build_scatter_plan(tp, "cpu", dia=dia)
+    for dtype in (np.float32, np.float64):
+        Ke = _ke(tm, seed=3).astype(dtype)
+        before = kscat.scatter.launches
+        plain = kscat.scatter(torch.from_numpy(Ke), plan)
+        assert kscat.scatter.launches == before
+        assert plain.dtype == torch.from_numpy(Ke).dtype
+        walk = _row_band_walk(Ke, plan)
+        np.testing.assert_array_equal(walk, plain.numpy())
+        np.testing.assert_array_equal(
+            walk, _jax_scatter(jm, Ke, layout, offsets))
+        if dia is None:
+            assert (walk[~tp.valid] == 0).all()
+        else:
+            ref = tdia.dia_scatter(torch.from_numpy(Ke),
+                                   torch.from_numpy(dia.ensure_scatter_targets()),
+                                   dia.n_dof, dia.n_offsets)
+            assert torch.equal(plain, ref)
+    return plan
 
 
 @pytest.mark.parametrize("name", ["tri3", "quad4", "hex8", "hex20",
                                   "tet4_unstructured"])
 @pytest.mark.parametrize("layout", ["ell", "dia"])
 def test_scatter_kernel_emulation_matches_plain(name, layout):
-    _, tm, _ = _meshes(name)
-    tp = build_pattern(tm)
-    dia = tdia.build_dia_pattern(tm, ell=tp) if layout == "dia" else None
-    assert layout == "ell" or dia is not None
-    plan = kscat.build_scatter_plan(tp, "cpu", dia=dia)
-    Ke = _ke(tm, seed=3)
-    before = kscat.scatter.launches
-    plain = kscat.scatter(torch.from_numpy(Ke), plan)
-    assert kscat.scatter.launches == before
-    np.testing.assert_array_equal(_emulate_scatter(Ke, plan), plain.numpy())
-    if dia is None:
-        assert (plain.numpy()[~tp.valid] == 0).all()
+    jm, tm, _ = _meshes(name)
+    _check_row_band_walk(jm, tm, layout)
+
+
+@pytest.mark.parametrize("layout", ["ell", "dia"])
+def test_scatter_kernel_emulation_on_a_collapsed_hex(layout):
+    """An element that names a node twice: its pairs take the flagged
+    path (one b at a time), and the walk still equals both plain scatters
+    bit for bit."""
+    jm, tm = _collapsed_hexes()
+    plan = kscat.build_scatter_plan(build_pattern(tm), "cpu")
+    assert (plan.pairs < 0).sum() == tm.element.n_nodes  # element 0's pairs
+    _check_row_band_walk(jm, tm, layout)
+
+
+def _fan(n_ring):
+    """A disc of n_ring triangles around one centre node: the centre's
+    node-ELL row has n_ring + 1 slots."""
+    angle = np.linspace(0.0, 2.0 * np.pi, n_ring, endpoint=False)
+    nodes = np.concatenate([[[0.0, 0.0]],
+                            np.stack([np.cos(angle), np.sin(angle)], 1)])
+    ring = np.arange(1, n_ring + 1)
+    elements = np.stack([np.zeros(n_ring, np.int64), ring,
+                         np.roll(ring, -1)], 1).astype(np.int32)
+    jm = jmesh.FEMesh(nodes, elements, jmg.rect_tris(1, 1).element)
+    return jm, convert.mesh_from(jm)
+
+
+@pytest.mark.parametrize("case", ["fan-1535-ell", "fan-1536-ell",
+                                  "hex8-dia-32768", "hex8-dia-32769"])
+def test_scatter_kernel_emulation_on_wide_rows(case):
+    """Either side of the wide plan's thresholds: a node row of
+    SHARED_ROW_BYTES (a fan's centre, 1536 node slots in 2-D) and one
+    slot more; 2^15 DIA columns and one more.  A wide plan has int32
+    indices, and the walk stays bit-equal to both plain scatters."""
+    if case.startswith("fan"):
+        n_ring = int(case.split("-")[1])
+        jm, tm = _fan(n_ring)
+        plan = _check_row_band_walk(jm, tm, "ell")
+        assert plan.node_width == n_ring + 1
+        wide = n_ring + 1 > kscat.SHARED_ROW_BYTES // (8 * tm.dm * tm.dm)
     else:
-        ref = tdia.dia_scatter(torch.from_numpy(Ke),
-                               torch.from_numpy(dia.ensure_scatter_targets()),
-                               dia.n_dof, dia.n_offsets)
-        assert torch.equal(plain, ref)
+        n_cols = int(case.split("-")[2])
+        jm, tm, _ = _meshes("hex8")
+        lo = -(n_cols // 2)
+        plan = _check_row_band_walk(jm, tm, "dia",
+                                    offsets=range(lo, lo + n_cols))
+        assert plan.out_shape[1] == n_cols
+        wide = n_cols > 2**15
+    assert plan.wide == wide
+    index = torch.int32 if wide else torch.int16
+    assert plan.positions.dtype == index
+    assert plan.dia_columns is None or plan.dia_columns.dtype == index
 
 
 def test_block_inverse_lists_each_slot_in_element_order():
-    _, tm, _ = _meshes("tet4_unstructured")
+    """The plan's pair list: each node's pairs in ascending e * npe + a,
+    its positions those of the block map, flags exactly on the pairs of
+    elements that name a node twice; the plain version recovers the block
+    map from the plan."""
+    for tm in (_meshes("tet4_unstructured")[1], _collapsed_hexes()[1]):
+        tp = build_pattern(tm)
+        npe = tm.element.n_nodes
+        plan = kscat.build_scatter_plan(tp, "cpu")
+        ptr, pairs = plan.node_ptr.numpy(), plan.pairs.numpy()
+        assert plan.positions.dtype == torch.int16 and not plan.wide
+        pos = plan.positions.numpy().astype(np.int64).reshape(-1, npe)
+        assert pairs.dtype == np.int32 and ptr.dtype == np.int64
+        assert ptr[0] == 0 and ptr[-1] == tm.n_elements * npe
+        p = np.where(pairs < 0, ~pairs, pairs)
+        np.testing.assert_array_equal(np.sort(p), np.arange(p.shape[0]))
+        repeated = np.array([np.unique(el).shape[0] < npe for el in tm.elements])
+        np.testing.assert_array_equal(pairs < 0, repeated[p // npe])
+        bt = tp.block_targets.reshape(-1, npe)
+        for n in range(tm.n_nodes):
+            lst = p[ptr[n]:ptr[n + 1]]
+            assert (np.diff(lst) > 0).all()
+            e, a = np.divmod(lst, npe)
+            assert (tm.elements[e, a] == n).all()
+            np.testing.assert_array_equal(
+                n * tp.node_width + pos[ptr[n]:ptr[n + 1]], bt[lst])
+        np.testing.assert_array_equal(kscat.block_targets(plan).numpy(),
+                                      tp.block_targets)
+
+
+def test_scatter_plan_narrows_the_dia_columns():
+    """On the DIA layout the plan stores each ELL slot's DIA column within
+    its row: int16 up to 2^15 columns (int32 past it, a wide plan), -1 on
+    padding, and row * K + column is ``ell_to_dia_slots``."""
+    _, tm, _ = _meshes("hex8")
     tp = build_pattern(tm)
-    n_slots = tm.n_nodes * tp.node_width
-    ptr, ids = kscat.block_inverse(tp.block_targets, n_slots)
-    assert ptr[0] == 0 and ptr[-1] == tp.block_targets.shape[0]
-    np.testing.assert_array_equal(np.sort(ids), np.arange(ids.shape[0]))
-    for q in range(0, n_slots, 7):
-        lst = ids[ptr[q]:ptr[q + 1]]
-        assert (tp.block_targets[lst] == q).all()
-        assert (np.diff(lst) > 0).all()
-    # the plain version recovers the map from the plan's inverse
-    plan = kscat.build_scatter_plan(tp, "cpu")
-    np.testing.assert_array_equal(kscat.block_targets(plan).numpy(),
-                                  tp.block_targets)
+    dia = tdia.build_dia_pattern(tm, ell=tp)
+    rows = np.arange(tp.n_dof * tp.width) // tp.width
+    wide_offsets = tuple(range(-20_000, 20_000))  # 40,000 columns
+    assert set(dia.offsets) <= set(wide_offsets)
+    wide = dataclasses.replace(dia, offsets=wide_offsets, diag_idx=20_000)
+    for d, dtype in ((dia, torch.int16), (wide, torch.int32)):
+        plan = kscat.build_scatter_plan(tp, "cpu", dia=d)
+        assert plan.out_shape == (tp.n_dof, d.n_offsets)
+        cols = plan.dia_columns
+        assert cols.dtype == dtype and cols.shape == (tp.n_dof * tp.width,)
+        assert plan.wide == (dtype == torch.int32)
+        cols = cols.numpy().astype(np.int64)
+        valid = tp.valid.reshape(-1)
+        assert (cols[~valid] == -1).all() and (cols[valid] >= 0).all()
+        np.testing.assert_array_equal(
+            np.where(valid, rows * d.n_offsets + cols, -1),
+            tdia.ell_to_dia_slots(tp, d.offsets))
 
 
 def test_scatter_wrapper_rejects_bad_operands():
