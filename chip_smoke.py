@@ -25,14 +25,23 @@ Phases (any failure raises, and the script exits non-zero):
      seeded) vs its plain version, bit-identical on a rerun.
    Tolerances, relative to max|reference|: 1e-12 in float64, 1e-5 in
    float32.  At NX=56 the kernels and their plain versions are timed with
-   CUDA events, in turns (plain, kernel, kernel, plain); P1 also against
+   CUDA events, in turns (plain, kernel, kernel, plain), the runs of each
+   turn queued behind a device spin so the events read device time, not
+   the host's launch rate (``cuda_ms``); P1 also against
    cuSPARSE's CSR matvec of the same operator's in-range entries and P2
    against one ``index_add_`` of the planes over int64 targets (each
    built before the timing, timed in turns with the kernel), P3 against
    the two-stage path it replaces (isotropic prep + P2).
 4. two-stage path: ``structured_assemble_coords(accumulate="pallas")`` on
    the NX=56 box in float64 against the analytic operator, with P2's
-   launch counter zeroed just before and read just after.
+   launch counter zeroed just before and read just after.  Then M5, the
+   box's internal-force scatter, in float32 and float64 on box_tets(9, 7,
+   5) and (56, 56, 56): bit for bit against its plain version run on the
+   CPU on the same seeded element forces, bit-identical on a rerun, at
+   NX=56 timed in turns with its plain version and one ``index_add_`` of
+   the forces over their int64 dof targets; and, in float64 at NX=56, the
+   Ke -> planes transpose of ``structured_dia_scatter`` (the box Newton
+   tangent's way into P2) timed beside P2, with the call's peak memory.
 5. multigrid slice (the main path): FEMSystem(box_tets(56, 56, 56),
    LinearIsotropic(1000, 0.3), SolverConfig(preconditioner="multigrid"),
    device="cuda") in float64 (555,579 dofs; levels 56^3 -> 28^3 -> 14^3 ->
@@ -60,16 +69,20 @@ Phases (any failure raises, and the script exits non-zero):
      printed, not gated: it measures the f32 element math); bit-identical
      on a rerun;
    - M2 ELL SpMV kernel vs the plain row gather on the operator after
-     Dirichlet elimination, x seeded with numpy.
+     Dirichlet elimination, x seeded with numpy;
+   - M4, the general internal-force scatter over M1's plan, bit for bit
+     equal to its plain version run on the CPU on seeded element forces,
+     bit-identical on a rerun; at NX=56 timed in turns with its plain
+     version and one ``index_add_`` over the int64 dof targets.
    Tolerances as in phase 3; at NX=56 both timed in turns, M1 also
    against one ``index_add_`` over the int64 dof-level targets and M2
    against cuSPARSE's CSR matvec of the valid slots (both built before
    the timing).  Then M1 on both routes, in float32 and float64, bit for
    bit equal to the CPU plain version on seeded random element
-   stiffnesses, on rect_tris(5, 4), box_hexes(4, 3, 3),
-   box_hexes20(2, 2, 1), box_wedges(2, 2, 2) and a box_hexes(2, 2, 2)
-   with one hex collapsed (an element that names a node twice), each
-   also on a DIA layout of 2^15 + 1 columns (a wide plan: int32 indices,
+   stiffnesses (and M4 on seeded element forces), on rect_tris(5, 4),
+   box_hexes(4, 3, 3), box_hexes20(2, 2, 1), box_wedges(2, 2, 2) and a
+   box_hexes(2, 2, 2) with one hex collapsed (an element that names a
+   node twice), M1 each also on a DIA layout of 2^15 + 1 columns (a wide plan: int32 indices,
    sums kept in the output); on node rows either side of the longest one
    the kernel sums in shared memory (tet fans whose apex has 682 and 683
    node slots, triangle fans whose centre has 1536 and 1537); and the
@@ -98,16 +111,40 @@ Phases (any failure raises, and the script exits non-zero):
    Abaqus text (node sets, *Boundary, a *Surface with a *Dsload
    pressure, *Elastic, *Static), read with read_inp, solved on the card
    with the CG at cg_eps=1e-10 (M1 and M2) against the host direct solve.
-11. print the launch counts and the CG iterations of every path, each
+11. Newton, box (a main path): FEMSystem(box_tets(56, 56, 56),
+   LinearIsotropic(1000, 0.3), geometric_nonlinear=True,
+   SolverConfig(preconditioner="multigrid", linear_solver="cg")) in
+   float64, z=0 clamped and the z=1 face turned about the box axis by the
+   rotation hook under ``*Boundary, user`` (``TWIST``: 3.6 degrees in five
+   increments), every launch counter zeroed just before the solve and
+   read just after.  Checks: success, the increment/Newton history
+   against ``EXPECTED_NEWTON``, M5 and P2 launched once per Newton
+   evaluation, no kernel of another path, the f64 host residual
+   (``assembly_host.internal_force_host`` at the final dof, BC rows
+   zeroed) within 1e-8 of the last residual the device reported (its rms,
+   and the vector of a fresh evaluation), finite output of the expected
+   shapes; a warm solve repeats the history.  Prints the walls, the
+   newton_eval / linear_solve split, the evaluations, the CG iterations
+   of every solve and the peak memory.
+12. Newton, ELL: the same on unstructured_box_tets(56) with the default
+   config (ELL, Jacobi CG): M4 and M1 once per evaluation.
+13. Newton, small: unstructured_box_tets(12) with ``tangent="consistent"``
+   and with ``newton_jacobian_reuse="increment"`` (both below the
+   direct-solve limit; M4 and M1), and box_tets(16, 16, 16) with the
+   reference's secant tangent (``geometric_stiffness=False``: P3 from the
+   current coordinates, and M5), the same checks without the warm solve.
+14. print the launch counts and the CG iterations of every path, each
    beside the count that the deterministic kernels have always given, and
-   fail on another count (a kernel changed its rounding); then the kernel
-   table as one JSON line: per kernel, its f64 time and its plain version's, the
-   library call's (null for P3, which no single PyTorch call computes
-   from coordinates), its bound (the larger of its bytes over 3.35 TB/s and its
+   fail on another count (a kernel changed its rounding), and the Newton
+   histories beside the pinned ones; then the kernel table as one JSON
+   line: per kernel, its f64 time and its plain version's, the library
+   call's (null for P3, which no single PyTorch call computes from
+   coordinates), its bound (the larger of its bytes over 3.35 TB/s and its
    operations over the f64 peak, from this run's shapes) and the launches
-   of the path that runs it (P1 and P3 from the multigrid slice, P2 from
-   the two-stage path, M1 and M2 from the ELL slice); then the result
-   line ``{"ok": true, "device": {...}}`` last.
+   of the path that runs it (P1 and P3 from the multigrid slice, P2 and
+   M5 from the box Newton path, M1 and M2 from the ELL slice, M4 from the
+   ELL Newton path); then the result line ``{"ok": true, "device":
+   {...}}`` last.
 """
 
 from __future__ import annotations
@@ -138,6 +175,21 @@ INP_NX = 12
 #: rounding
 EXPECTED_CG_ITERS = {"multigrid box": 6, "jacobi box": 257, "ELL slice": 312,
                      "general-DIA slice": 163, ".inp model, CG": 260}
+#: the Newton cases' time schedule: the top face turned by time * pi about
+#: the box axis, 3.6 degrees in five increments.  Each increment's first
+#: Newton iterate puts its whole turn into the top element layer, 1/56
+#: thick, so the step stays small: larger ones inverted tets of the
+#: jittered mesh or stalled the box's CG when tried
+TWIST = {"ini_inc": 0.004, "max_time": 0.02, "min_inc": 1e-5,
+         "max_inc": 0.004}
+#: the increment/Newton history of each Newton case, (Newton loops,
+#: converged) per increment record, as the card has given it since the
+#: Newton path was ported; another history means the path's arithmetic
+#: changed
+EXPECTED_NEWTON = {"box Newton": [(2, True)] * 5, "ELL Newton": [(2, True)] * 5,
+                   "consistent tangent": [(1, True)] * 5,
+                   "Jacobian reuse": [(1, True)] * 5,
+                   "box secant": [(1, True)] * 5}
 
 
 def check(ok: bool, what: str) -> None:
@@ -154,15 +206,43 @@ def card_line() -> str:
     return out[0]
 
 
+_SLEEP_CYCLES_PER_MS = []
+
+
+def _queue_ahead(host_ms: float) -> None:
+    """Hold the current stream in a device-side spin for about
+    ``host_ms`` (at most 300 ms), so that work the host queues meanwhile
+    runs back to back after it: a kernel of tens of microseconds is
+    shorter than its wrapper's host time, and without this the events
+    would time the host's launch rate."""
+    import torch
+
+    if not _SLEEP_CYCLES_PER_MS:  # calibrate the spin once
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(10_000_000)
+        end.record()
+        torch.cuda.synchronize()
+        _SLEEP_CYCLES_PER_MS.append(10_000_000 / start.elapsed_time(end))
+    torch.cuda._sleep(int(min(host_ms, 300.0) * _SLEEP_CYCLES_PER_MS[0]))
+
+
 def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds of ``fn()`` over ``reps`` runs, by CUDA events,
-    after one warm-up run."""
+    """Mean device milliseconds of ``fn()`` over ``reps`` runs, by CUDA
+    events, after one warm-up run; the runs are queued behind a device
+    spin longer than the host takes to queue them (``_queue_ahead``)."""
     import torch
 
     fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    _queue_ahead(3.0 * reps * host_ms + 1.0)
     start.record()
     for _ in range(reps):
         fn()
@@ -247,7 +327,9 @@ def launch_counters():
         dia_spmv,
         ell_scatter,
         ell_spmv,
+        internal_force,
         structured_accumulate,
+        structured_force,
         structured_fused,
     )
 
@@ -255,7 +337,9 @@ def launch_counters():
             "structured_accumulate": structured_accumulate.accumulate,
             "structured_fused": structured_fused.fused_assemble,
             "ell_scatter": ell_scatter.scatter,
-            "ell_spmv": ell_spmv.spmv}
+            "ell_spmv": ell_spmv.spmv,
+            "internal_force": internal_force.scatter_force,
+            "structured_force": structured_force.force_scatter}
 
 
 def zero_launches() -> None:
@@ -504,6 +588,104 @@ def coarse_spmv_checks(torch):
                   f"rel err {rel:.3e} (tol {TOL[name]:.0e})", flush=True)
 
 
+def box_force_checks(torch, card, results):
+    """Phase 4b: M5 (the box's internal-force scatter) in float32 and
+    float64 on box_tets(9, 7, 5) and (56, 56, 56), bit for bit against its
+    plain version run on the CPU on the same seeded element forces and
+    against its own rerun; at NX=56 timed in turns with its plain version
+    and one ``index_add_`` over the int64 dof targets.  Then, in float64
+    at NX=56, the Ke -> planes transpose of ``structured_dia_scatter`` timed
+    beside P2 on the box's element stiffnesses, with the call's peak
+    memory."""
+    from femcy_tpu_torch import assembly
+    from femcy_tpu_torch.kernels import structured_accumulate as k_acc
+    from femcy_tpu_torch.kernels import structured_force as k_sf
+    from femcy_tpu_torch.materials import LinearIsotropic
+    from femcy_tpu_torch.meshgen import box_tets
+    from femcy_tpu_torch.solvers.dia import build_structured_dia_pattern
+    from femcy_tpu_torch.structured import (
+        build_structured_plan,
+        structured_dia_scatter,
+        structured_force_scatter,
+    )
+
+    for dims in (SMALL, FULL):
+        mesh = box_tets(*dims)
+        plan = build_structured_plan(mesh, build_structured_dia_pattern(mesh))
+        f_np = np.random.default_rng(10).standard_normal((mesh.n_elements, 4, 3))
+        for dtype in (torch.float32, torch.float64):
+            name = str(dtype).split(".")[1]
+            f_e = torch.as_tensor(f_np, dtype=dtype, device=DEVICE)
+            f_k = k_sf.force_scatter(f_e, plan, mesh)
+            ref = structured_force_scatter(f_e.cpu(), plan, mesh)
+            got = f_k.cpu()
+            abs5 = float((got - ref).abs().max())
+            check(torch.equal(got, ref), f"M5 {dims} {name}: not bit-equal to "
+                  f"the CPU plain version (max abs difference {abs5:.3e})")
+            check(torch.equal(f_k, k_sf.force_scatter(f_e, plan, mesh)),
+                  f"M5 {dims} {name}: rerun not bit-identical")
+            print(f"box force kernel {dims} {name}: M5 bit-equal to the CPU "
+                  "plain version, bit-identical rerun", flush=True)
+            if dims != FULL:
+                continue
+            elements = torch.as_tensor(mesh.elements.astype(np.int64),
+                                       device=DEVICE)
+            targets = (elements[:, :, None] * 3
+                       + torch.arange(3, device=DEVICE)).reshape(-1)
+            lib_out = torch.zeros(mesh.n_dof, dtype=dtype, device=DEVICE)
+            f_flat = f_e.view(-1)
+            lib_out.index_add_(0, targets, f_flat)
+            check(float((lib_out - f_k).abs().max()) <= TOL[name]
+                  * float(f_k.abs().max()), "M5's index_add_ yardstick "
+                  "disagrees")
+            ms, pms, lms = in_turns(
+                lambda: structured_force_scatter(f_e, plan, mesh),
+                lambda: k_sf.force_scatter(f_e, plan, mesh), 3, 20,
+                lambda: lib_out.index_add_(0, targets, f_flat))
+            b = bound((f_e.numel() + mesh.n_dof) * f_e.element_size(),
+                      f_e.numel(), name)
+            print(f"timing box_tets{dims} {name} on {card}: M5 "
+                  f"structured_force kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+                  f"index_add_ {lms:.4f} ms, bound {b[0]:.4f} ms ({b[1]})",
+                  flush=True)
+            results[name]["structured_force"] = row(abs5, ms, pms, lms, b)
+            del targets, lib_out, elements
+        del f_e, f_k
+        torch.cuda.empty_cache()
+
+    # the box Newton tangent's Ke -> planes transpose beside P2
+    mat = LinearIsotropic(1000.0, 0.3)
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float64, device=DEVICE)
+
+    nodes = dev(mesh.nodes)
+    elements = torch.as_tensor(mesh.elements.astype(np.int64), device=DEVICE)
+    dsdx, vol = assembly.gradients_and_volume(
+        nodes, elements, dev(mesh.element.dshape_at_gp),
+        dev(mesh.element.gauss_weights))
+    Ke = assembly.element_stiffness(dsdx, vol, dev(mat.C))
+    del dsdx, vol, nodes, elements
+    nc = plan.nx * plan.ny * plan.nz
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    structured_dia_scatter(Ke, plan)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    planes = Ke.reshape(nc, 6, 144).permute(1, 2, 0).contiguous()
+    table = plan.accumulate_table
+    p2_ms, t_ms, _ = in_turns(
+        lambda: Ke.reshape(nc, 6, 144).permute(1, 2, 0).contiguous(),
+        lambda: k_acc.accumulate(planes, table), 5, 5)
+    print(f"structured_dia_scatter at {FULL} float64 on {card}: Ke "
+          f"{Ke.numel() * 8 / 1e9:.3f} GB; Ke -> planes transpose {t_ms:.4f} "
+          f"ms, P2 {p2_ms:.4f} ms; the call's peak memory above its input "
+          f"{peak / 1e9:.3f} GB", flush=True)
+    del Ke, planes
+    torch.cuda.empty_cache()
+
+
 def two_stage_run(torch, full_ref):
     """Phase 4.  Returns P2's launch count on the two-stage path."""
     from femcy_tpu_torch.kernels import structured_accumulate as k_acc
@@ -725,6 +907,8 @@ def general_kernel_checks(torch, card, results):
         diag_slot = torch.as_tensor(pattern.diag_slot, device=DEVICE)
         splan = k_ell.spmv_plan(pattern, DEVICE)
         x_np = np.random.default_rng(2).standard_normal(mesh.n_dof)
+        f_np = np.random.default_rng(8).standard_normal(
+            (mesh.n_elements, mesh.element.n_nodes, mesh.dm))
         for dtype in (torch.float32, torch.float64):
             name = str(dtype).split(".")[1]
             tol = TOL[name]
@@ -768,10 +952,16 @@ def general_kernel_checks(torch, card, results):
             abs2 = float((y_k - y_p).abs().max())
             rel2 = abs2 / float(y_p.abs().max())
             check(rel2 <= tol, f"M2 vs plain {nx} {name}: {rel2:.3e}")
+            # M4: the internal-force scatter over the same plan, bit for
+            # bit its plain version on the CPU
+            f_e = dev(f_np)
+            f_k, abs4 = m4_against_cpu_plain(torch, f_e, plan,
+                                             f"unstructured ({nx}) {name}")
             print(f"general kernels ({nx}) {name}: M1 bit-equal to the CPU "
                   f"plain version, {rel1h:.3e} vs host f64 (gated in float64 "
                   f"only), bit-identical rerun; M2 "
-                  f"rel err {rel2:.3e} vs plain (tol {tol:.0e})", flush=True)
+                  f"rel err {rel2:.3e} vs plain (tol {tol:.0e}); M4 bit-equal "
+                  "to the CPU plain version, bit-identical rerun", flush=True)
 
             if nx == UNSTRUCT[-1]:
                 # M1's yardstick: one index_add_ over the int64 dof-level
@@ -813,11 +1003,64 @@ def general_kernel_checks(torch, card, results):
                       flush=True)
                 results[name]["ell_scatter"] = row(abs1, ms1, pms1, lms1, b1)
                 results[name]["ell_spmv"] = row(abs2, ms2, pms2, lms2, b2)
+                results[name]["internal_force"] = m4_timing(
+                    torch, card, f_e, f_k, abs4, plan, f"unstructured_box_tets"
+                    f"({nx}) {name}")
                 out = K
-            del Ke, v_k, vals, vt, nodes
+            del Ke, v_k, vals, vt, nodes, f_e, f_k
         del plan, splan, colidx, diag_slot
         torch.cuda.empty_cache()
     return out
+
+
+def plan_on_cpu(torch, plan):
+    """A copy of M1's (and M4's) plan with every tensor on the CPU."""
+    return dataclasses.replace(plan, **{
+        f.name: getattr(plan, f.name).cpu() for f in dataclasses.fields(plan)
+        if isinstance(getattr(plan, f.name), torch.Tensor)})
+
+
+def m4_against_cpu_plain(torch, f_e, plan, what: str):
+    """M4 on the card, checked bit for bit against its plain version run
+    on the CPU on the same element forces and against its own rerun.
+    Returns (forces, max abs difference to the CPU plain version)."""
+    from femcy_tpu_torch.kernels import internal_force as k_force
+
+    f_k = k_force.scatter_force(f_e, plan)
+    ref = k_force.scatter_force_plain(f_e.cpu(), plan_on_cpu(torch, plan))
+    got = f_k.cpu()
+    abs_err = float((got - ref).abs().max())
+    check(torch.equal(got, ref), f"M4 {what}: not bit-equal to the CPU plain "
+          f"version (max abs difference {abs_err:.3e})")
+    check(torch.equal(f_k, k_force.scatter_force(f_e, plan)),
+          f"M4 {what}: rerun not bit-identical")
+    return f_k, abs_err
+
+
+def m4_timing(torch, card, f_e, f_k, abs4, plan, what: str):
+    """M4 timed in turns with its plain version and one ``index_add_`` of
+    f_e over its int64 dof targets (built before the timing).  Returns its
+    kernel-table row."""
+    from femcy_tpu_torch.kernels import internal_force as k_force
+
+    targets = k_force.force_targets(plan)
+    lib_out = torch.zeros(plan.n_dof, dtype=f_e.dtype, device=DEVICE)
+    f_flat = f_e.view(-1)
+    lib_out.index_add_(0, targets, f_flat)
+    name = str(f_e.dtype).split(".")[1]
+    check(float((lib_out - f_k).abs().max()) <= TOL[name]
+          * float(f_k.abs().max()), "M4's index_add_ yardstick disagrees")
+    ms, pms, lms = in_turns(
+        lambda: k_force.scatter_force_plain(f_e, plan),
+        lambda: k_force.scatter_force(f_e, plan), 3, 20,
+        lambda: lib_out.index_add_(0, targets, f_flat))
+    isz = f_e.element_size()
+    b = bound((f_e.numel() + plan.n_dof) * isz + plan.pairs.numel() * 4
+              + plan.node_ptr.numel() * 8, f_e.numel(), name)
+    print(f"timing {what} on {card}: M4 internal_force kernel {ms:.4f} ms, "
+          f"plain {pms:.4f} ms, index_add_ {lms:.4f} ms, bound {b[0]:.4f} ms "
+          f"({b[1]})", flush=True)
+    return row(abs4, ms, pms, lms, b)
 
 
 def plan_bytes(plan) -> int:
@@ -834,10 +1077,7 @@ def m1_against_cpu_plain(torch, Ke, plan, what: str):
     from femcy_tpu_torch.kernels import ell_scatter as k_scat
 
     v_k = k_scat.scatter(Ke, plan)
-    cpu_plan = dataclasses.replace(plan, **{
-        f.name: getattr(plan, f.name).cpu() for f in dataclasses.fields(plan)
-        if isinstance(getattr(plan, f.name), torch.Tensor)})
-    ref = k_scat.scatter_plain(Ke.cpu(), cpu_plan)
+    ref = k_scat.scatter_plain(Ke.cpu(), plan_on_cpu(torch, plan))
     got = v_k.cpu()
     abs_err = float((got - ref).abs().max())
     check(torch.equal(got, ref), f"M1 {what}: not bit-equal to the CPU plain "
@@ -939,6 +1179,16 @@ def scatter_route_checks(torch, card):
             check((flagged > 0) == (mesh is collapsed),
                   f"{label}: {flagged} pairs flagged as naming a node twice")
             both_types(plan, Ke_np, f"{label} {layout}")
+            if layout == "ell":
+                f_np = np.random.default_rng(9).standard_normal(
+                    (mesh.n_elements, mesh.element.n_nodes, mesh.dm))
+                for dtype in (torch.float32, torch.float64):
+                    m4_against_cpu_plain(torch, torch.as_tensor(
+                        f_np, dtype=dtype, device=DEVICE), plan,
+                        f"{label} {dtype}")
+                print(f"M4 on {label} (dm {mesh.dm}, {flagged} flagged "
+                      "pairs): bit-equal to the CPU plain version in float32 "
+                      "and float64, bit-identical reruns", flush=True)
             print(f"M1 on {label}, {layout} route ({plan.out_shape[1]} "
                   f"columns, {flagged} flagged pairs): bit-equal "
                   "to the CPU plain version in float32 and float64, "
@@ -1248,6 +1498,133 @@ def inp_run(torch):
     return cg_launches, iters
 
 
+def twist_model(mesh):
+    """z=0 clamped; the z=1 face driven on all three dofs by ``*Boundary,
+    user`` (the rotation hook, a twist about the box axis)."""
+    from femcy_tpu_torch.io.inp import DirichletBC, InpModel
+
+    bottom, top = z_faces(mesh)
+    bcs = [DirichletBC(bottom, d, 0.0) for d in range(3)]
+    bcs += [DirichletBC(top, d, 0.0, True) for d in range(3)]
+    return InpModel(
+        nodes=mesh.nodes, elements=mesh.elements, element_type="C3D4",
+        node_sets={"bottom": bottom, "top": top}, ele_sets={}, face_sets={},
+        dirichlet_bcs=bcs, neumann_bcs=[], material_type="Elastic",
+        material_params=[1000.0, 0.3], geometric_nonlinear=True,
+        time_incs=dict(TWIST),
+    )
+
+
+def newton_run(torch, card, label: str, mesh, config: dict, force: str,
+               tangent: str, warm: bool):
+    """Phases 11-13: one geometric-nonlinear twist of ``mesh`` through
+    FEMSystem.solve on the card, every launch counter zeroed just before
+    and read just after.  Checks: success, the history against
+    EXPECTED_NEWTON, the force kernel ``force`` (M5 or M4) and the tangent
+    kernel ``tangent`` (P2 or M1) launched once per Newton evaluation, no
+    kernel of another path, the f64 host residual (``internal_force_host``,
+    BC rows zeroed) at the final dof within 1e-8 of the device's last
+    reported residual (the rms, and the vector of a fresh evaluation),
+    finite output of the expected shapes.  With ``warm``, a second solve
+    must repeat the history.  Returns (launches, history)."""
+    from femcy_tpu_torch import FEMSystem, LinearIsotropic, SolverConfig
+    from femcy_tpu_torch.assembly_host import internal_force_host
+    from femcy_tpu_torch.user import make_rotation_dirichlet
+
+    mat = LinearIsotropic(1000.0, 0.3)
+    inp = twist_model(mesh)
+    hook = make_rotation_dirichlet((0.5, 0.5, 0.0))
+    t = time.perf_counter()
+    system = FEMSystem(mesh, mat, True, SolverConfig(**config), device=DEVICE)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    check(system.dtype == torch.float64, "default dtype is not float64")
+
+    def one_solve():
+        n_rec, n_cg = len(system.timer.records), len(system._cg_iters_log)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        report = system.solve(inp, user_dirichlet=hook)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        recs = system.timer.records[n_rec:]
+        split = {k: sum(r.seconds for r in recs if r.name == k)
+                 for k in ("newton_eval", "linear_solve")}
+        evals = sum(r.name == "newton_eval" for r in recs)
+        history = [(r.newton_iters, r.converged) for r in report.increments]
+        return report, wall, split, evals, history, system._cg_iters_log[n_cg:]
+
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    report, wall, split, evals, history, cg = one_solve()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    strain, stress, mises = system.compute_strain_stress()
+    energy = system.elastic_energy()
+    print(f"{label} on {card}: {mesh.n_elements} C3D4, {mesh.n_dof} dofs, "
+          f"{config}; setup {setup_s:.3f} s; first solve {wall:.3f} s "
+          f"(newton_eval {split['newton_eval']:.3f} s, linear_solve "
+          f"{split['linear_solve']:.3f} s), {evals} evaluations, history "
+          f"{history}, CG iterations per solve {cg}, peak memory "
+          f"{peak / 1e9:.3f} GB; launches {launches}", flush=True)
+    check(report.success, f"{label}: {report.message}")
+    want = EXPECTED_NEWTON[label]
+    check(history == want, f"{label}: history {history}, {want} expected")
+    check(launches[force] == evals and launches[tangent] == evals,
+          f"{label}: {force} launched {launches[force]} and {tangent} "
+          f"{launches[tangent]} times for {evals} evaluations")
+    spmv = ("dia_spmv" if system.dia is not None else "ell_spmv") if cg else None
+    for name, n in launches.items():
+        if name not in (force, tangent, spmv):
+            check(n == 0, f"{label}: {name} launched {n} times")
+    check(spmv is None or launches[spmv] > 0, f"{label}: no SpMV launched")
+    E = mesh.n_elements
+    for what, t_, shape in (("dof", system.dof, (mesh.n_dof,)),
+                            ("strain", strain, (E, 1, 3, 3)),
+                            ("stress", stress, (E, 1, 3, 3)),
+                            ("mises", mises, (E, 1))):
+        check(tuple(t_.shape) == shape, f"{label}: {what} shape")
+        check(bool(torch.isfinite(t_).all()), f"{label}: {what} not finite")
+    check(np.isfinite(energy) and energy > 0.0, f"{label}: energy {energy}")
+
+    # the f64 host residual at the final dof against the device's
+    fixed_d, sval_d = system._last_dirichlet
+    fixed = fixed_d.cpu().numpy()
+    t = time.perf_counter()
+    r_host = internal_force_host(mesh, mat, system.dof.cpu().numpy())
+    host_s = time.perf_counter() - t
+    r_host[fixed] = 0.0
+    rms_host = float(np.sqrt(np.mean(r_host * r_host)))
+    rms_dev = report.increments[-1].residual
+    rel_rms = abs(rms_dev - rms_host) / rms_host
+    _, _, r_dev, _, _ = system._newton_eval(
+        system.dof, torch.zeros_like(system.dof), fixed_d, sval_d)
+    rel_vec = float(np.abs(r_dev.cpu().numpy() - r_host).max()
+                    / np.abs(r_host).max())
+    check(rel_rms <= 1e-8 and rel_vec <= 1e-8,
+          f"{label}: device residual vs f64 host: rms {rel_rms:.3e}, vector "
+          f"{rel_vec:.3e}")
+    top = z_faces(mesh)[1]
+    turned = float(np.abs(system.dof.cpu().numpy().reshape(-1, 3)[top]).max())
+    print(f"{label} checks: last residual {rms_dev:.6e} (rms), f64 host "
+          f"residual {rms_host:.6e} (rel {rel_rms:.3e}; vector rel "
+          f"{rel_vec:.3e}; host {host_s:.2f} s), max top-face displacement "
+          f"{turned:.6f}, max mises {float(mises.max()):.6g}, energy "
+          f"{energy:.6g}", flush=True)
+    del r_dev, strain, stress, mises
+    if warm:
+        report2, wall2, split2, evals2, history2, cg2 = one_solve()
+        check(report2.success and history2 == history,
+              f"{label}: warm solve history {history2} != {history}")
+        print(f"{label} warm solve on {card}: {wall2:.3f} s (newton_eval "
+              f"{split2['newton_eval']:.3f} s, linear_solve "
+              f"{split2['linear_solve']:.3f} s), {evals2} evaluations, CG "
+              f"iterations per solve {cg2}", flush=True)
+    del system
+    torch.cuda.empty_cache()
+    return launches, history
+
+
 def main() -> int:
     card = card_line()
     print(card, flush=True)
@@ -1268,6 +1645,7 @@ def main() -> int:
     full_ref = kernel_checks(torch, card, results)
     coarse_spmv_checks(torch)
     p2_launches = two_stage_run(torch, full_ref)
+    box_force_checks(torch, card, results)
     iters = {}
     launches, iters["multigrid box"] = slice_run(torch, card, full_ref,
                                                  "multigrid")
@@ -1282,7 +1660,7 @@ def main() -> int:
 
     from femcy_tpu_torch.assembly_host import assemble_csr_host
     from femcy_tpu_torch.materials import LinearIsotropic
-    from femcy_tpu_torch.meshgen import box_hexes, unstructured_box_tets
+    from femcy_tpu_torch.meshgen import box_hexes, box_tets, unstructured_box_tets
     from femcy_tpu_torch.topology import build_pattern
 
     host_K = general_kernel_checks(torch, card, results)
@@ -1303,6 +1681,33 @@ def main() -> int:
         general_slice_run(torch, card, hexes, "dia", hex_K))
     del hex_K
     by_path[".inp model, CG"], iters[".inp model, CG"] = inp_run(torch)
+
+    histories = {}
+    by_path["box Newton"], histories["box Newton"] = newton_run(
+        torch, card, "box Newton", box_tets(*FULL),
+        dict(preconditioner="multigrid", linear_solver="cg"),
+        "structured_force", "structured_accumulate", warm=True)
+    by_path["ELL Newton"], histories["ELL Newton"] = newton_run(
+        torch, card, "ELL Newton", unstructured_box_tets(UNSTRUCT[-1]), {},
+        "internal_force", "ell_scatter", warm=True)
+    small = unstructured_box_tets(INP_NX)
+    by_path["consistent tangent"], histories["consistent tangent"] = (
+        newton_run(torch, card, "consistent tangent", small,
+                   dict(tangent="consistent"), "internal_force",
+                   "ell_scatter", warm=False))
+    by_path["Jacobian reuse"], histories["Jacobian reuse"] = newton_run(
+        torch, card, "Jacobian reuse", small,
+        dict(newton_jacobian_reuse="increment"), "internal_force",
+        "ell_scatter", warm=False)
+    by_path["box secant"], histories["box secant"] = newton_run(
+        torch, card, "box secant", box_tets(16, 16, 16),
+        dict(geometric_stiffness=False, preconditioner="multigrid",
+             linear_solver="cg"), "structured_force", "structured_fused",
+        warm=False)
+    launches["structured_accumulate"] = by_path["box Newton"][
+        "structured_accumulate"]
+    launches["structured_force"] = by_path["box Newton"]["structured_force"]
+    launches["internal_force"] = by_path["ELL Newton"]["internal_force"]
     print("launches per solve, by path: " + json.dumps(
         {path: {k: v for k, v in counts.items() if v}
          for path, counts in by_path.items()}), flush=True)
@@ -1312,6 +1717,9 @@ def main() -> int:
     for path, want in EXPECTED_CG_ITERS.items():
         check(iters[path] == want, f"{path}: {iters[path]} CG iterations, "
               f"{want} expected (a kernel changed its rounding)")
+    print("Newton histories by path (expected): " + "; ".join(
+        f"{path} {histories[path]} ({EXPECTED_NEWTON[path]})"
+        for path in EXPECTED_NEWTON), flush=True)
     print(f"M1 on the general-DIA route at box_hexes{HEX}, float64: "
           + json.dumps(m1_dia), flush=True)
 
@@ -1330,6 +1738,10 @@ def main() -> int:
                         "femcy_tpu/assembly.py:167"),
         "ell_spmv": ("femcy_tpu_torch/csrc/ell_spmv.cu",
                      "femcy_tpu/solvers/cg.py:20"),
+        "internal_force": ("femcy_tpu_torch/csrc/internal_force.cu",
+                           "femcy_tpu/assembly.py:198"),
+        "structured_force": ("femcy_tpu_torch/csrc/structured_force.cu",
+                             "femcy_tpu/structured.py:476"),
     }
     rows = []
     for name, (src, replaces) in source.items():

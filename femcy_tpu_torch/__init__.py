@@ -2,10 +2,11 @@
 
 A second package beside ``femcy_tpu`` (the JAX reference, which it never
 imports).  It grows slice by slice (ROADMAP.md); what exists now is the
-linear static analysis of any mesh: ``read_inp`` or ``meshgen`` ->
-``FEMesh`` -> ``material_from_inp`` -> ``FEMSystem`` -> assembly ->
-Dirichlet elimination -> direct solve or PCG -> strain, stress, Mises,
-energy and extrapolation.  A structured box (``meshgen.box_tets``)
+static analysis of any mesh, linear or geometric-nonlinear: ``read_inp``
+or ``meshgen`` -> ``FEMesh`` -> ``material_from_inp`` -> ``FEMSystem`` ->
+assembly -> Dirichlet elimination -> direct solve or PCG (inside the
+Newton loop on the nonlinear path) -> strain, stress, Mises, energy and
+extrapolation.  A structured box (``meshgen.box_tets``)
 assembles from its node coordinates into the analytic DIA layout and
 solves with a Jacobi, block-Jacobi or geometric-multigrid PCG; any other
 mesh goes through the ELL pattern (native C++ code, native/) and, where its
@@ -15,7 +16,8 @@ rewritten by hand in CUDA for sm_90a (kernels/, csrc/): the DIA SpMV
 (every DIA PCG iteration and multigrid level), the structured accumulate
 (the two-stage box assembly) and the fused coordinates-to-DIA assembly
 (the isotropic box default); so are the general path's deterministic
-stiffness scatter and ELL SpMV.
+stiffness scatter and ELL SpMV, and the Newton path's internal-force
+scatters (general and box).
 
 Tensors live on the device given to ``FEMSystem``: the card unless
 ``device="cpu"`` is passed (no auto-detection, and no CPU fallback), in

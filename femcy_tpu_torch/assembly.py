@@ -1,17 +1,23 @@
-"""Element kinematics and element stiffness as batched torch ops.
+"""Element kinematics, element stiffness and internal force as batched
+torch ops.
 
-Torch counterpart of the parts of ``femcy_tpu.assembly`` that the linear
-slices run: shape gradients and volumes, the B matrix, B^T C B per element,
-the plain element-stiffness scatters of the general (ELL) path, the
-deformation gradient and the per-Gauss-point stress and energy density.
-Every function is a plain function of tensors and keeps its inputs' dtype
-and device.  On CUDA the general path scatters through the deterministic
-kernel of kernels/ell_scatter.py instead of the indexed adds here.
+Torch counterpart of ``femcy_tpu.assembly``: shape gradients and volumes,
+the B matrix, B^T C B per element, the geometric (initial-stress)
+stiffness, the plain element-stiffness scatters of the general (ELL) path,
+the deformation gradient, the element internal forces, the consistent
+Newton tangent (forward-mode autodiff, ``torch.func.jvp``) and the
+per-Gauss-point stress and energy density.  Every function is a plain
+function of tensors and keeps its inputs' dtype and device.  On CUDA the
+general path scatters the stiffness through the deterministic kernel of
+kernels/ell_scatter.py (M1) instead of the indexed adds here; element
+forces are summed into dofs by kernels/internal_force.py (M4) on every
+device.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.func
 
 from femcy_tpu_torch.linalg import det_small, inv_small
 
@@ -87,6 +93,20 @@ def element_stiffness(dsdx, vol, C, layout: str = "eij"):
     return Ke.contiguous()
 
 
+def geometric_stiffness(dsdx, sigma, vol):
+    """Initial-stress (geometric) stiffness: Kg[(a,i),(b,j)] = d_ij
+    int grad(N_a) . sigma . grad(N_b) dv -> (E, edof, edof), contiguous.
+
+    The reference's Newton Jacobian is the secant material stiffness only
+    (README.md:93); adding this term gives the updated-Lagrangian tangent
+    (SolverConfig.geometric_stiffness).
+    """
+    E, G, n, dm = dsdx.shape
+    kg = torch.einsum("egaj,egjk,egbk,eg->eab", dsdx, sigma, dsdx, vol)
+    eye = torch.eye(dm, dtype=dsdx.dtype, device=dsdx.device)
+    return torch.einsum("eab,ij->eaibj", kg, eye).reshape(E, n * dm, n * dm)
+
+
 def scatter_stiffness(Ke, scatter_targets, n_dof: int, width: int):
     """Element stiffnesses (E, edof, edof) -> padded ELL values
     (n_dof, width) by one indexed add over the dof-level targets, in Ke
@@ -146,6 +166,69 @@ def deformation_gradient_u(u_e, dsdX0):
     dm = dsdX0.shape[-1]
     dudX = torch.einsum("enU,egnX->egUX", u_e, dsdX0)
     return dudX + torch.eye(dm, dtype=u_e.dtype, device=u_e.device)
+
+
+def element_internal_force(dsdx, sigma, vol):
+    """Per-element nodal forces f[e, a, i] = sum_gp dsdx[a, :] . sigma[:, i]
+    * vol -> (E, n, dm) (ref: stiffnessMtrx.py:609-644)."""
+    return torch.einsum("egaj,egji,eg->eai", dsdx, sigma, vol)
+
+
+def _element_internal_force(u_e, x0_e, dN, w, material):
+    """Internal force of a batch of elements, (E, n, dm) displacements and
+    initial coordinates -> (E, edof) forces.
+
+    The same math as the global path (F from the initial configuration,
+    Cauchy stress, gradients and volumes on the current configuration),
+    written per element so that it can be differentiated.
+    """
+    dm = x0_e.shape[-1]
+    dxdn0 = torch.einsum("enD,gnd->egDd", x0_e, dN)
+    dsdX = torch.einsum("gnd,egdD->egnD", dN, inv_small(dxdn0))
+    eye = torch.eye(dm, dtype=u_e.dtype, device=u_e.device)
+    F = eye + torch.einsum("enU,egnX->egUX", u_e, dsdX)
+    sigma = material.cauchy_large(F)
+    x_e = x0_e + u_e
+    dxdn = torch.einsum("enD,gnd->egDd", x_e, dN)
+    dsdx = torch.einsum("gnd,egdD->egnD", dN, inv_small(dxdn))
+    vol = det_small(dxdn) * w
+    f = torch.einsum("egaj,egji,eg->eai", dsdx, sigma, vol)
+    return f.reshape(f.shape[0], -1)
+
+
+def consistent_tangent(dof, elements, coords0, dN, w, material):
+    """Exact per-element Newton tangent Ke = d f_int_e / d u_e by
+    forward-mode autodiff -> (E, edof, edof): material, geometric and
+    configuration terms, with no hand-derived tensor algebra."""
+    dm = coords0.shape[1]
+    u_e = dof.reshape(-1, dm)[elements]  # (E, n, dm)
+    return consistent_tangent_elems(u_e, coords0[elements], dN, w, material)
+
+
+def consistent_tangent_elems(u_e, x0_e, dN, w, material):
+    """consistent_tangent on per-element arrays (E, n, dm).
+
+    One ``torch.func.jvp`` of the batched element force per element dof j,
+    with the same unit seed e_j in every element: its tangent output is
+    column j of every element's Jacobian, the values the JAX package's
+    scan of per-element JVPs gives.
+    """
+    E, n, dm = u_e.shape
+    edof = n * dm
+    u_flat = u_e.reshape(E, edof)
+
+    def fe(u):
+        return _element_internal_force(u.reshape(E, n, dm), x0_e, dN, w,
+                                       material)
+
+    Ke = u_e.new_empty((E, edof, edof))
+    seed = torch.zeros_like(u_flat)
+    for j in range(edof):
+        seed.zero_()
+        seed[:, j] = 1.0
+        _, col = torch.func.jvp(fe, (u_flat,), (seed,))
+        Ke[:, :, j] = col
+    return Ke
 
 
 def gp_stress(F, material, large: bool):

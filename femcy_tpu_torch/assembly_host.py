@@ -1,12 +1,14 @@
 """Host (numpy, f64) twins of the device assembly: the exactly assembled
 global stiffness of any mesh, as scipy CSR.
 
-Host copy of the linear part of ``femcy_tpu.assembly_host`` (:24-110).
-In the JAX package it is the f64 operator of mixed-precision refinement;
-in the port it is also the oracle the card's assembled operator is held
-against (``chip_smoke.py``), the general mesh's counterpart of the box's
-analytic operator.  Same math as assembly.py (reference updated-Lagrangian
-assembly, stiffnessMtrx.py:132-216); pure numpy.
+Host copy of ``femcy_tpu.assembly_host``.  In the JAX package it is the
+f64 operator and residual of mixed-precision refinement; in the port it is
+also the oracle the card is held against (``chip_smoke.py``): the
+assembled operator of a general mesh (the counterpart of the box's
+analytic operator), and the internal force of a Newton state
+(``internal_force_host``).  Same math as assembly.py (reference
+updated-Lagrangian assembly, stiffnessMtrx.py:132-216, 532-556, 609-644);
+pure numpy.
 """
 
 from __future__ import annotations
@@ -100,3 +102,106 @@ def dirichlet_csr_host(K, rhs, fixed, sval):
     free = sp.diags((~fixed).astype(np.float64))
     K_bc = (free @ K @ free + sp.diags(fixed.astype(np.float64))).tocsr()
     return K_bc, rhs
+
+
+# --------------------------------------------------------------------------- #
+# f64 nonlinear residual twins
+# --------------------------------------------------------------------------- #
+def _gradients_and_volume_host(coords, elements, dN, w):
+    """numpy twin of assembly.gradients_and_volume (f64)."""
+    x = coords[elements]
+    dxdn = np.einsum("enD,gnd->egDd", x, dN)
+    inv = np.linalg.inv(dxdn)
+    dsdx = np.einsum("gnd,egdD->egnD", dN, inv)
+    vol = np.linalg.det(dxdn) * w[None]
+    return dsdx, vol
+
+
+def gp_stress_host(F: np.ndarray, material, large: bool) -> np.ndarray:
+    """Batched f64 Cauchy stress (E, G, dm, dm), the numpy twin of
+    assembly.gp_stress over materials/constitutive.py's closed forms.
+
+    Dispatches on the material class by name, so this module stays
+    numpy-only."""
+    name = type(material).__name__
+    dm = F.shape[-1]
+    eye = np.eye(3)
+
+    def _voigt(E3):  # (..., 3, 3) -> (..., 6) strain Voigt
+        return np.stack(
+            [E3[..., 0, 0], E3[..., 1, 1], E3[..., 2, 2],
+             E3[..., 0, 1] + E3[..., 1, 0],
+             E3[..., 2, 0] + E3[..., 0, 2],
+             E3[..., 1, 2] + E3[..., 2, 1]], axis=-1,
+        )
+
+    def _sym(s):  # (..., 6) stress Voigt -> (..., 3, 3)
+        out = np.zeros(s.shape[:-1] + (3, 3))
+        out[..., 0, 0], out[..., 1, 1], out[..., 2, 2] = (
+            s[..., 0], s[..., 1], s[..., 2])
+        out[..., 0, 1] = out[..., 1, 0] = s[..., 3]
+        out[..., 2, 0] = out[..., 0, 2] = s[..., 4]
+        out[..., 1, 2] = out[..., 2, 1] = s[..., 5]
+        return out
+
+    if name == "NeoHookean":
+        J = np.linalg.det(F)[..., None, None]
+        B = F @ np.swapaxes(F, -1, -2)
+        return (2.0 * material.C1 / J * (B - eye)
+                + 2.0 * material.D1 * (J - 1.0) * eye)
+
+    # linear-elastic family: embed F in 3D (plane-stress thickness closure /
+    # plane-strain F33=1), PK2 from Green strain, push forward
+    if dm == 2:
+        F3 = np.zeros(F.shape[:-2] + (3, 3))
+        F3[..., :2, :2] = F
+        if name == "LinearIsotropicPlaneStress":
+            nu = material.poisson_ratio
+            F3[..., 2, 2] = 1.0 - nu / (1.0 - nu) * (
+                F[..., 0, 0] + F[..., 1, 1] - 2.0
+            )
+        elif name == "LinearIsotropicPlaneStrain":
+            F3[..., 2, 2] = 1.0
+        else:
+            raise NotImplementedError(
+                f"no f64 host twin for 2D material {name}")
+        C66 = np.asarray(material.C_6x6, np.float64)
+    else:
+        if name != "LinearIsotropic":
+            raise NotImplementedError(f"no f64 host twin for material {name}")
+        F3 = F
+        C66 = np.asarray(material.C, np.float64)
+
+    if large:
+        E3 = (np.swapaxes(F3, -1, -2) @ F3 - eye) / 2.0
+    else:
+        E3 = (F3 + np.swapaxes(F3, -1, -2)) / 2.0 - eye
+    s = _sym(np.einsum("ab,...b->...a", C66, _voigt(E3)))
+    if not large:
+        return s[..., :dm, :dm]
+    J = np.linalg.det(F3)[..., None, None]
+    return (F3 @ s @ np.swapaxes(F3, -1, -2) / J)[..., :dm, :dm]
+
+
+def internal_force_host(mesh: FEMesh, material, dof: np.ndarray,
+                        large: bool = True) -> np.ndarray:
+    """f64 internal nodal force at displacement ``dof``: the numpy twin of
+    the device path (deformation gradient on the initial configuration,
+    Cauchy stress, gradients and volumes on the current configuration;
+    ref: stiffnessMtrx.py:532-556 + 609-644)."""
+    nodes = np.asarray(mesh.nodes, np.float64)
+    dN = np.asarray(mesh.element.dshape_at_gp, np.float64)
+    w = np.asarray(mesh.element.gauss_weights, np.float64)
+    dm = mesh.dm
+    u = np.asarray(dof, np.float64).reshape(-1, dm)
+    dsdX0, _ = _gradients_and_volume_host(nodes, mesh.elements, dN, w)
+    F = np.einsum("enU,egnX->egUX", u[mesh.elements], dsdX0) + np.eye(dm)
+    sigma = gp_stress_host(F, material, large=large)
+    dsdx, vol = _gradients_and_volume_host(nodes + u, mesh.elements, dN, w)
+    f_elem = np.einsum("egaj,egji,eg->eai", dsdx, sigma, vol)
+    dof_ids = (
+        mesh.elements.astype(np.int64)[:, :, None] * dm + np.arange(dm)
+    ).reshape(-1)
+    # bincount is ~5x np.add.at for this scatter shape
+    return np.bincount(dof_ids, weights=f_elem.reshape(-1),
+                       minlength=mesh.n_dof)

@@ -1,10 +1,10 @@
 """Boundary conditions: Dirichlet masks and precomputed Neumann patterns.
 
-Counterpart of ``femcy_tpu.bc`` for the linear slices.  The Dirichlet
-masks and the unit Neumann patterns are built once on the host in numpy,
-exactly as in the JAX package.  The elimination runs on the device: on the
-ELL layout here (``apply_dirichlet_linear``), on the DIA layout in
-solvers/dia.py.  The Newton variant comes with the Newton slice.
+Counterpart of ``femcy_tpu.bc``.  The Dirichlet masks and the unit
+Neumann patterns are built once on the host in numpy, exactly as in the
+JAX package.  The elimination runs on the device: on the ELL layout here
+(``apply_dirichlet_linear``, and ``apply_dirichlet_newton`` for the Newton
+path), on the DIA layout in solvers/dia.py.
 
 Neumann: the facet geometry is evaluated on the *initial* configuration and
 the load enters linearly, so one unit nodal force pattern per ``*Dsload``
@@ -41,7 +41,9 @@ def build_dirichlet_arrays(
 
     Later BCs overwrite earlier ones on shared dofs (stiffnessMtrx.py:519-529).
     ``user=True`` BCs get their per-node values from ``user_fn(nodes, dof,
-    time)``; plain BCs use value * load_ratio (stiffnessMtrx.py:687-688).
+    time)`` (by default ``user.default_user_dirichlet``, the reference's
+    rotation, user_defined/user_api.py); plain BCs use value * load_ratio
+    (stiffnessMtrx.py:687-688).
     """
     n_dof = mesh.n_dof
     fixed = np.zeros(n_dof, dtype=bool)
@@ -51,11 +53,9 @@ def build_dirichlet_arrays(
         fixed[idx] = True
         if bc.user:
             if user_fn is None:
-                raise NotImplementedError(
-                    "*Boundary, user needs an explicit user_dirichlet "
-                    "callable here; the default rotation hook (user.py) "
-                    "comes with the nonlinear slice (ROADMAP slice C)"
-                )
+                from femcy_tpu_torch.user import default_user_dirichlet
+
+                user_fn = default_user_dirichlet
             sval[idx] = np.asarray(user_fn(
                 mesh.nodes[np.asarray(bc.node_set, dtype=np.int64)], bc.dof, time
             ))
@@ -86,6 +86,21 @@ def apply_dirichlet_linear(values, colidx, diag_slot, rhs, fixed, sval):
     flat = values.view(-1)
     flat[diag_slot] = torch.where(fixed, values.new_ones(()), flat[diag_slot])
     return values, rhs
+
+
+def apply_dirichlet_newton(values, colidx, diag_slot, residual, fixed):
+    """Newton-path Dirichlet treatment on the ELL layout: constrained
+    residual rows zeroed, fixed rows and columns of the Jacobian zeroed
+    and their diagonal set to 1 (ref: stiffnessMtrx.py:310-341).
+
+    Returns new (values, residual); the inputs are not modified.
+    """
+    zero = values.new_zeros(())
+    residual = torch.where(fixed, zero, residual)
+    values = torch.where(fixed[colidx] | fixed[:, None], zero, values)
+    flat = values.view(-1)
+    flat[diag_slot] = torch.where(fixed, values.new_ones(()), flat[diag_slot])
+    return values, residual
 
 
 def pin_dof(dof, fixed, sval):

@@ -9,9 +9,11 @@ The three TPU kernels of femcy_tpu/kernels/:
 - structured_accumulate.accumulate    <- femcy_tpu/kernels/structured_accumulate.py (P2)
 - structured_fused.fused_assemble     <- femcy_tpu/kernels/structured_fused.py (P3)
 
-and the device ops that carry the general (ELL) path, which the JAX
-package leaves to XLA's scatter and gather:
+and the device ops that carry the general (ELL) path and the Newton
+path, which the JAX package leaves to XLA's scatters and gathers:
 
-- ell_scatter.scatter   <- assembly.scatter_stiffness_blocks / solvers/dia.dia_scatter (M1)
-- ell_spmv.spmv         <- solvers/cg.ell_spmv (M2)
+- ell_scatter.scatter            <- assembly.scatter_stiffness_blocks / solvers/dia.dia_scatter (M1)
+- ell_spmv.spmv                  <- solvers/cg.ell_spmv (M2)
+- internal_force.scatter_force   <- assembly.internal_force (M4, general layouts)
+- structured_force.force_scatter <- structured.structured_force_scatter (M5, the box)
 """

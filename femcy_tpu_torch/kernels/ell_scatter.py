@@ -145,16 +145,31 @@ def build_scatter_plan(pattern: ELLPattern, device,
     )
 
 
-def block_targets(plan: ScatterPlan):
-    """The node-block map (E * npe * npe,) int64, recovered from the plan:
-    entry (p, b) of pair p = e * npe + a, which the plan lists under node
-    n at t, is n * node_width + positions[t * npe + b]."""
+def _listed_pairs(plan: ScatterPlan):
+    """(node, p), int64, for each entry t of the plan's pair list: the node
+    it is listed under and its pair p = e * npe + a, decoded."""
     counts = plan.node_ptr.diff()
     node = torch.repeat_interleave(
         torch.arange(counts.shape[0], device=counts.device), counts,
         output_size=plan.pairs.shape[0])
     p = plan.pairs.long()
-    p = torch.where(p < 0, ~p, p)
+    return node, torch.where(p < 0, ~p, p)
+
+
+def pair_nodes(plan: ScatterPlan):
+    """The node of every element-node pair p = e * npe + a, (E * npe,)
+    int64, recovered from the plan: ``elements.reshape(-1)``."""
+    node, p = _listed_pairs(plan)
+    out = torch.empty_like(node)
+    out[p] = node
+    return out
+
+
+def block_targets(plan: ScatterPlan):
+    """The node-block map (E * npe * npe,) int64, recovered from the plan:
+    entry (p, b) of pair p = e * npe + a, which the plan lists under node
+    n at t, is n * node_width + positions[t * npe + b]."""
+    node, p = _listed_pairs(plan)
     bt = torch.empty((p.shape[0], plan.npe), dtype=torch.long,
                      device=p.device)
     bt[p] = (node[:, None] * plan.node_width

@@ -55,11 +55,18 @@ def _eye(F, n: int):
 
 
 def _embed_3d(F, f33):
-    """(..., 2, 2) F and (...,) F33 -> (..., 3, 3) with zero coupling."""
-    F3 = F.new_zeros(F.shape[:-2] + (3, 3))
-    F3[..., :2, :2] = F
-    F3[..., 2, 2] = f33
-    return F3
+    """(..., 2, 2) F and (...,) F33 (or a float) -> (..., 3, 3) with zero
+    coupling.  Out of place, so that forward-mode differentiation
+    (``assembly.consistent_tangent``) can pass through it."""
+    f33 = torch.as_tensor(f33, dtype=F.dtype, device=F.device).expand(
+        F.shape[:-2])
+    z = torch.zeros_like(f33)
+    rows = [
+        torch.stack([F[..., 0, 0], F[..., 0, 1], z], dim=-1),
+        torch.stack([F[..., 1, 0], F[..., 1, 1], z], dim=-1),
+        torch.stack([z, z, f33], dim=-1),
+    ]
+    return torch.stack(rows, dim=-2)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -228,6 +228,21 @@ def dia_dirichlet_linear(values, offsets: Tuple[int, ...], diag_idx: int,
     return values, rhs
 
 
+def dia_dirichlet_newton(values, offsets: Tuple[int, ...], diag_idx: int,
+                         residual, fixed):
+    """Newton-path Dirichlet treatment on the DIA layout (same math as
+    bc.apply_dirichlet_newton: residual rows zeroed, fixed rows and columns
+    zeroed, unit diagonal).  Returns new (values, residual)."""
+    col_fixed = _shifted_columns(fixed, offsets)
+    zero = values.new_zeros(())
+    residual = torch.where(fixed, zero, residual)
+    values = torch.where(col_fixed | fixed[:, None], zero, values)
+    values[:, diag_idx] = torch.where(
+        fixed, values.new_ones(()), values[:, diag_idx]
+    )
+    return values, residual
+
+
 def block_jacobi_inverse(values, offsets: Tuple[int, ...], dm: int):
     """Inverse of the per-node dm x dm diagonal blocks -> (n_nodes, dm, dm).
 

@@ -21,6 +21,13 @@ of three routes:
 
 On CUDA the default is "fused" where it applies and "pallas" otherwise;
 on the CPU it is the plain path.
+
+The Newton path also assembles from element matrices:
+``structured_dia_scatter`` (Ke + Kg, or the consistent tangent, as P2's
+planes); its secant tangent alone takes ``structured_assemble_coords``
+from the current coordinates.  ``structured_force_scatter`` sums element
+forces into nodal forces by the same corner shifts (the plain version of
+M5, kernels/structured_force.py).
 """
 
 from __future__ import annotations
@@ -62,6 +69,18 @@ class StructuredPlan:
         from femcy_tpu_torch.kernels.structured_fused import FusedTable
 
         return FusedTable(self)
+
+    @functools.cached_property
+    def force_shifts(self) -> np.ndarray:
+        """The (24, 3) int32 corner shift of local node a of Kuhn
+        orientation o, at row o * 4 + a: M5's table
+        (kernels.structured_force), read off the combos, where (o, p, q)
+        carries the shift of p's node a = p // 3."""
+        shifts = np.zeros((24, 3), dtype=np.int32)
+        for combos in self.groups.values():
+            for o, p, _, shift in combos:
+                shifts[o * 4 + p // 3] = shift
+        return shifts
 
 
 def _box_info(mesh: FEMesh) -> dict:
@@ -256,6 +275,47 @@ def structured_assemble_coords(coords, mesh: FEMesh, dN, w, C,
                                   lame=lame if n_gauss == 1 else None)
         return acc(planes, plan.accumulate_table)
     return accumulate_planes(stiffness_planes(coords, mesh, dN, w, C), plan)
+
+
+def _accumulate(planes, plan: StructuredPlan):
+    """(6, 144, nc) planes -> DIA values: the accumulate kernel (P2) on
+    CUDA, its plain version ``accumulate_planes`` on the CPU."""
+    from femcy_tpu_torch.kernels.structured_accumulate import accumulate
+
+    return accumulate(planes, plan.accumulate_table)
+
+
+def structured_dia_scatter(Ke, plan: StructuredPlan):
+    """Element stiffnesses (E, 12, 12) -> DIA values (n_dof, K), with no
+    scatter: Ke in box_tets cell-major order (E = 6 * nx * ny * nz) is
+    transposed to P2's (6, 144, nc) planes, then accumulated.  The
+    transpose costs 2x Ke's bytes (femcy_tpu.structured's own note)."""
+    nc = plan.nx * plan.ny * plan.nz
+    if Ke.shape != (6 * nc, 12, 12):
+        raise ValueError(
+            f"Ke shape {tuple(Ke.shape)} != ({6 * nc}, 12, 12)"
+        )
+    planes = Ke.reshape(nc, 6, 144).permute(1, 2, 0).contiguous()
+    return _accumulate(planes, plan)
+
+
+def structured_force_scatter(f_elem, plan: StructuredPlan, mesh: FEMesh):
+    """Per-element nodal forces (E, 4, 3) in box_tets cell-major order ->
+    global force (n_dof,), with no scatter: 6 orientations x 4 local nodes
+    of corner-shifted dense adds, orientation outer, local node inner
+    (femcy_tpu.structured.structured_force_scatter).  The plain version of
+    the box force kernel (kernels/structured_force.py, M5)."""
+    info = _box_info(mesh)
+    nx, ny, nz = plan.nx, plan.ny, plan.nz
+    delta = np.asarray(info["corner_delta"])
+    fg = f_elem.reshape(nx, ny, nz, 6, 4, 3)
+    out = f_elem.new_zeros((nx + 1, ny + 1, nz + 1, 3))
+    for o, corners in enumerate(info["kuhn"]):
+        d = delta[list(corners)]
+        for a in range(4):
+            dx, dy, dz = (int(v) for v in d[a])
+            out[dx : dx + nx, dy : dy + ny, dz : dz + nz] += fg[:, :, :, o, a]
+    return out.reshape(-1)
 
 
 def accumulate_planes(planes, plan: StructuredPlan):

@@ -30,8 +30,9 @@ def test_imports_and_solves_without_jax():
         import femcy_tpu_torch as T
         from femcy_tpu_torch.io.inp import DirichletBC, InpModel
         from femcy_tpu_torch.kernels import (
-            dia_spmv, ell_scatter, ell_spmv, structured_accumulate,
-            structured_fused)
+            dia_spmv, ell_scatter, ell_spmv, internal_force,
+            structured_accumulate, structured_force, structured_fused)
+        from femcy_tpu_torch import user
         from femcy_tpu_torch.native import loader
         from femcy_tpu_torch.solvers import cg, multigrid
         from femcy_tpu_torch import assembly_host, topology
@@ -68,6 +69,26 @@ def test_imports_and_solves_without_jax():
                         device="cpu")
         assert g.dia is None and loader.get_lib() is not None
         assert g.solve(uinp).success and g._last_cg_iters > 0
+        # the Newton path on both layouts, the top face turned by the
+        # rotation hook
+        tinp = InpModel(mesh.nodes, mesh.elements, "C3D4", {}, {}, {},
+                        bcs[:3] + [DirichletBC(top, d, 0.0, True)
+                                   for d in range(3)],
+                        [], "Elastic", [1000.0, 0.3], True,
+                        {"ini_inc": 0.05, "max_time": 0.05, "min_inc": 1e-5,
+                         "max_inc": 0.05})
+        hook = user.make_rotation_dirichlet((0.5, 0.5, 0.0))
+        for nl in (mesh, u):
+            n = T.FEMSystem(nl, T.LinearIsotropic(1000.0, 0.3), True,
+                            T.SolverConfig(linear_solver="direct"),
+                            device="cpu")
+            if nl is u:
+                ut3 = [DirichletBC(ut, d, 0.0, True) for d in range(3)]
+                tinp = InpModel(u.nodes, u.elements, "C3D4", {}, {}, {},
+                                ubcs[:3] + ut3, [], "Elastic",
+                                [1000.0, 0.3], True, tinp.time_incs)
+            rep = n.solve(tinp, user_dirichlet=hook)
+            assert rep.success and rep.increments[0].newton_iters > 0
         assert not any(m == "jax" or m.startswith(("jax.", "femcy_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")

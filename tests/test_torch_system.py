@@ -130,36 +130,11 @@ def test_float32_switch(monkeypatch):
     assert _rel(s32.dof, s64.dof) < 1e-4
 
 
-@pytest.mark.parametrize(
-    "make, kw",
-    [
-        (lambda: T.meshgen.box_tets(2, 2, 2), {"geometric_nonlinear": True}),
-        (lambda: T.meshgen.box_hexes(2, 2, 2), {"geometric_nonlinear": True}),
-        (lambda: T.meshgen.unstructured_box_tets(2),
-         {"geometric_nonlinear": True}),
-    ],
-)
-def test_unported_paths_raise(make, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP slice"):
-        T.FEMSystem(make(), T.LinearIsotropic(1000.0, 0.3), device="cpu",
-                    **kw)
-
-
 def test_bad_dtype_and_device_raise():
     mesh = T.meshgen.box_tets(2, 2, 2)
     mat = T.LinearIsotropic(1000.0, 0.3)
     with pytest.raises(ValueError):
         T.FEMSystem(mesh, mat, device="meta")
-
-
-def test_on_newton_hook_raises():
-    """The linear slice runs no Newton iteration: a hook is refused, not
-    silently dropped."""
-    mesh = T.meshgen.box_tets(2, 2, 2)
-    inp = convert.inp_from(_model(F.meshgen.box_tets(2, 2, 2)))
-    s = T.FEMSystem(mesh, T.LinearIsotropic(1000.0, 0.3), device="cpu")
-    with pytest.raises(NotImplementedError, match="Newton"):
-        s.solve(inp, on_newton=lambda *a: None)
 
 
 def test_checkpoint_roundtrip(tmp_path):

@@ -14,6 +14,7 @@ below cg_eps).
 """
 
 import dataclasses
+import fcntl
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +28,7 @@ from femcy_tpu import mesh as jmesh
 from femcy_tpu import meshgen as jmg
 from femcy_tpu.solvers import cg as jcg
 from femcy_tpu.solvers import dia as jdia
+from femcy_tpu.native import loader as j_loader
 from femcy_tpu.topology import build_pattern as j_build_pattern
 
 from femcy_tpu_torch import assembly as tasm
@@ -40,6 +42,26 @@ from femcy_tpu_torch.native import loader
 from femcy_tpu_torch.solvers import cg as tcg
 from femcy_tpu_torch.solvers import dia as tdia
 from femcy_tpu_torch.topology import ELLPattern, build_pattern
+
+
+
+def _build_jax_native_library():
+    """Build femcy_tpu's native pattern library once, before any test runs.
+
+    femcy_tpu compiles it next to its source at first use, with no lock
+    across processes, and a process that loses the race keeps the numpy
+    route for its lifetime (its own tests then skip).  Every test worker
+    imports this module while it collects, before it runs a test, so the
+    build here, serialised by a lock file in the port's git-ignored build
+    directory, leaves one complete library for all of them.
+    """
+    loader.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(loader.BUILD_DIR / "jax_native_pattern.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        j_loader._compile()
+
+
+_build_jax_native_library()
 
 #: the PCG's default cg_eps; at tighter ones roundoff in the dot products
 #: can move the stopping test by one iteration (42 against 43 at 1e-8 on
@@ -69,8 +91,13 @@ def _rel(a, b):
 
 
 def _same_pattern(t: ELLPattern, j):
+    """Every field equal, except the dof-level map ``scatter_targets``,
+    which either package's native route fills only at first use (the
+    numpy route at once): callers compare ``ensure_scatter_targets()``."""
     for f in dataclasses.fields(ELLPattern):
         a, b = getattr(t, f.name), getattr(j, f.name)
+        if f.name == "scatter_targets":
+            continue
         if f.name in ("n_dof", "width", "node_width"):
             assert a == b, f.name
         elif b is None:
@@ -111,6 +138,8 @@ def test_numpy_pattern_matches_jax(name, monkeypatch):
     tp, jp = build_pattern(tm), j_build_pattern(jm)
     assert tp.scatter_targets is not None
     _same_pattern(tp, jp)
+    np.testing.assert_array_equal(tp.scatter_targets,
+                                  jp.ensure_scatter_targets())
     for f in ("colidx", "row_counts", "diag_slot", "block_targets",
               "csr_indptr", "csr_indices", "csr_slots"):
         np.testing.assert_array_equal(getattr(tp, f), getattr(native, f))
@@ -184,6 +213,7 @@ def test_convert_carries_patterns_across():
     jp.ensure_scatter_targets()
     tp = convert.ell_pattern_from(jp)
     _same_pattern(tp, jp)
+    np.testing.assert_array_equal(tp.scatter_targets, jp.scatter_targets)
     assert tp.colidx is not jp.colidx
     jd = jdia.build_dia_pattern(jm, ell=jp)
     td = convert.dia_pattern_from(jd)
