@@ -36,8 +36,10 @@ Phases (any failure raises, and the script exits non-zero):
    the NX=56 box in float64 against the analytic operator, with P2's
    launch counter zeroed just before and read just after.  Then M5, the
    box's internal-force scatter, in float32 and float64 on box_tets(9, 7,
-   5) and (56, 56, 56): bit for bit against its plain version run on the
-   CPU on the same seeded element forces, bit-identical on a rerun, at
+   5), (56, 56, 56), (5, 6, 19) (no multiple of the kernel's tile, also run
+   at a 2 x 3 x 2 tile) and (2, 3, 1) (thinner than a tile): bit for bit
+   against its plain version run on the CPU on the same seeded element
+   forces, bit-identical on a rerun, at
    NX=56 timed in turns with its plain version and one ``index_add_`` of
    the forces over their int64 dof targets; and, in float64 at NX=56, the
    Ke -> planes transpose of ``structured_dia_scatter`` (the box Newton
@@ -72,8 +74,11 @@ Phases (any failure raises, and the script exits non-zero):
      Dirichlet elimination, x seeded with numpy;
    - M4, the general internal-force scatter over M1's plan, bit for bit
      equal to its plain version run on the CPU on seeded element forces,
-     bit-identical on a rerun; at NX=56 timed in turns with its plain
-     version and one ``index_add_`` over the int64 dof targets.
+     bit-identical on a rerun (at NX=9 also on the plan with one more node
+     that no element names, whose forces must be 0); at NX=56 timed in
+     turns with its plain version and one ``index_add_`` over the int64
+     dof targets, its bound printed beside its reads at 32-byte sector
+     granularity (``kernels.internal_force.m4_read_sectors``).
    Tolerances as in phase 3; at NX=56 both timed in turns, M1 also
    against one ``index_add_`` over the int64 dof-level targets and M2
    against cuSPARSE's CSR matvec of the valid slots (both built before
@@ -165,6 +170,9 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 DEVICE = "cuda"
 SMALL, FULL = (9, 7, 5), (56, 56, 56)
+#: boxes M5 is also held to its plain version on: one that is no multiple
+#: of its tile (and is also run at a small tile), one thinner than a tile
+M5_EDGE_BOXES = ((5, 6, 19), (2, 3, 1))
 #: unstructured_box_tets sizes of the general kernel checks; the last one
 #: is the ELL slice's mesh
 UNSTRUCT = (9, 56)
@@ -593,7 +601,9 @@ def box_force_checks(torch, card, results):
     float64 on box_tets(9, 7, 5) and (56, 56, 56), bit for bit against its
     plain version run on the CPU on the same seeded element forces and
     against its own rerun; at NX=56 timed in turns with its plain version
-    and one ``index_add_`` over the int64 dof targets.  Then, in float64
+    and one ``index_add_`` over the int64 dof targets.  The same checks,
+    untimed, on ``M5_EDGE_BOXES`` (the first also at a 2 x 3 x 2 tile).
+    Then, in float64
     at NX=56, the Ke -> planes transpose of ``structured_dia_scatter`` timed
     beside P2 on the box's element stiffnesses, with the call's peak
     memory."""
@@ -609,23 +619,31 @@ def box_force_checks(torch, card, results):
         structured_force_scatter,
     )
 
-    for dims in (SMALL, FULL):
+    for dims in (SMALL,) + M5_EDGE_BOXES + (FULL,):  # FULL last: used below
         mesh = box_tets(*dims)
         plan = build_structured_plan(mesh, build_structured_dia_pattern(mesh))
         f_np = np.random.default_rng(10).standard_normal((mesh.n_elements, 4, 3))
         for dtype in (torch.float32, torch.float64):
             name = str(dtype).split(".")[1]
             f_e = torch.as_tensor(f_np, dtype=dtype, device=DEVICE)
-            f_k = k_sf.force_scatter(f_e, plan, mesh)
             ref = structured_force_scatter(f_e.cpu(), plan, mesh)
-            got = f_k.cpu()
-            abs5 = float((got - ref).abs().max())
-            check(torch.equal(got, ref), f"M5 {dims} {name}: not bit-equal to "
-                  f"the CPU plain version (max abs difference {abs5:.3e})")
-            check(torch.equal(f_k, k_sf.force_scatter(f_e, plan, mesh)),
-                  f"M5 {dims} {name}: rerun not bit-identical")
+            runs = {plan.force_tile[name]:
+                    lambda: k_sf.force_scatter(f_e, plan, mesh)}
+            if dims == M5_EDGE_BOXES[0]:
+                runs[(2, 3, 2)] = lambda: k_sf.launch_at(f_e, plan, (2, 3, 2))
+            tiles = list(runs)
+            for tile, run in runs.items():
+                f_k = run()
+                got = f_k.cpu()
+                abs5 = float((got - ref).abs().max())
+                check(torch.equal(got, ref), f"M5 {dims} {name} tile {tile}: "
+                      "not bit-equal to the CPU plain version (max abs "
+                      f"difference {abs5:.3e})")
+                check(torch.equal(f_k, run()),
+                      f"M5 {dims} {name} tile {tile}: rerun not bit-identical")
             print(f"box force kernel {dims} {name}: M5 bit-equal to the CPU "
-                  "plain version, bit-identical rerun", flush=True)
+                  f"plain version at tiles {tiles}, bit-identical rerun",
+                  flush=True)
             if dims != FULL:
                 continue
             elements = torch.as_tensor(mesh.elements.astype(np.int64),
@@ -957,6 +975,9 @@ def general_kernel_checks(torch, card, results):
             f_e = dev(f_np)
             f_k, abs4 = m4_against_cpu_plain(torch, f_e, plan,
                                              f"unstructured ({nx}) {name}")
+            if nx == UNSTRUCT[0]:
+                m4_orphan_check(torch, f_e, plan, f"unstructured ({nx}) "
+                                f"{name}")
             print(f"general kernels ({nx}) {name}: M1 bit-equal to the CPU "
                   f"plain version, {rel1h:.3e} vs host f64 (gated in float64 "
                   f"only), bit-identical rerun; M2 "
@@ -1037,6 +1058,22 @@ def m4_against_cpu_plain(torch, f_e, plan, what: str):
     return f_k, abs_err
 
 
+def m4_orphan_check(torch, f_e, plan, what: str) -> None:
+    """M4 on ``plan`` with one more node, numbered 7, that no element
+    names: bit for bit its CPU plain version, the node last in
+    ``node_order`` and its forces 0."""
+    from femcy_tpu_torch.kernels.ell_scatter import with_orphan_node
+
+    orphan = with_orphan_node(plan, 7)
+    check(int(orphan.node_order[-1]) == 7, f"M4 {what}: the orphan node is "
+          "not last in node_order")
+    f_k, _ = m4_against_cpu_plain(torch, f_e, orphan, f"{what}, orphan node")
+    check(not f_k[7 * orphan.dm:8 * orphan.dm].any(),
+          f"M4 {what}: the orphan node's forces are not 0")
+    print(f"M4 {what} with an orphan node: bit-equal to the CPU plain "
+          "version, bit-identical rerun, the orphan's forces 0", flush=True)
+
+
 def m4_timing(torch, card, f_e, f_k, abs4, plan, what: str):
     """M4 timed in turns with its plain version and one ``index_add_`` of
     f_e over its int64 dof targets (built before the timing).  Returns its
@@ -1056,10 +1093,14 @@ def m4_timing(torch, card, f_e, f_k, abs4, plan, what: str):
         lambda: lib_out.index_add_(0, targets, f_flat))
     isz = f_e.element_size()
     b = bound((f_e.numel() + plan.n_dof) * isz + plan.pairs.numel() * 4
-              + plan.node_ptr.numel() * 8, f_e.numel(), name)
+              + plan.node_ptr.numel() * 8,
+              f_e.numel(), name)
+    sectors = k_force.m4_read_sectors(plan, isz)
     print(f"timing {what} on {card}: M4 internal_force kernel {ms:.4f} ms, "
           f"plain {pms:.4f} ms, index_add_ {lms:.4f} ms, bound {b[0]:.4f} ms "
-          f"({b[1]})", flush=True)
+          f"({b[1]}); its reads at 32-byte sectors: " + ", ".join(
+              f"{k} {v} bytes ({v / HBM_BYTES_PER_S * 1e3:.4f} ms)"
+              for k, v in sectors.items()), flush=True)
     return row(abs4, ms, pms, lms, b)
 
 

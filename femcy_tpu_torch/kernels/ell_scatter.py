@@ -10,8 +10,9 @@ one gather-form kernel and no atomics: element stiffnesses (E, edof, edof)
 
 ``build_scatter_plan`` inverts the element-node map once per pattern on
 the host (a stable argsort of the pairs' nodes: each node's element-node
-pairs in element order), stores each pair's node-ELL positions and, on
-the DIA layout, the DIA column of every ELL slot, and uploads them.  The
+pairs in element order), stores each pair's node-ELL positions, the
+nodes sorted by their first pair (for the internal-force kernel, M4) and,
+on the DIA layout, the DIA column of every ELL slot, and uploads them.  The
 kernel walks one node row per warp over those pairs (see the source),
 summing in shared memory; a plan with a longer row than that holds, or
 with more than 2^15 DIA columns, is wide, and the kernel sums in the
@@ -66,6 +67,11 @@ class ScatterPlan:
     #: elements[e, a] == n, grouped by node n, ascending within each;
     #: stored as ~p (negative) where element e names one node twice
     pairs: torch.Tensor
+    #: (n_nodes,) int32: the nodes sorted by their first (smallest) pair,
+    #: nodes with no pair last; the internal-force kernel (M4) sums node
+    #: node_order[t] in lane group t, so neighbouring groups read
+    #: neighbouring elements.  M1 does not read it
+    node_order: torch.Tensor
     #: (E * npe * npe,) int16 (int32 if wide): at t * npe + b, the position
     #: of elements[e, b] in the node-ELL row of pair t's node
     positions: torch.Tensor
@@ -95,6 +101,35 @@ def node_pairs(block_targets: np.ndarray, node_width: int, npe: int,
     srt = np.sort(positions, axis=1)
     flagged = (srt[:, 1:] == srt[:, :-1]).any(axis=1)
     return node_ptr, pairs, positions, flagged
+
+
+def first_pair_order(node_ptr: np.ndarray, pairs: np.ndarray) -> np.ndarray:
+    """The nodes sorted by their first pair, (n_nodes,) int32: node n's
+    key is its smallest pair p (``pairs[node_ptr[n]]``, decoded where it
+    is stored as ~p), a node with no pair gets a key past every pair, and
+    the sort is stable."""
+    key = np.full(node_ptr.shape[0] - 1, pairs.shape[0], dtype=np.int64)
+    has = np.diff(node_ptr) > 0
+    first = pairs[node_ptr[:-1][has]].astype(np.int64)
+    key[has] = np.where(first < 0, ~first, first)
+    return np.argsort(key, kind="stable").astype(np.int32)
+
+
+def with_orphan_node(plan: ScatterPlan, k: int) -> ScatterPlan:
+    """The plan for the same mesh with one more node, numbered k, that no
+    element names (the mesh's nodes k and up move up by one): node k gets
+    an empty pair list, so it comes last in ``node_order`` and its forces
+    are 0.  The pattern builders refuse such a mesh (a dof without a
+    diagonal entry), so the checks of M4 on one make its plan this way."""
+    ptr = plan.node_ptr.cpu().numpy()
+    ptr = np.concatenate([ptr[:k + 1], ptr[k:]])
+    order = first_pair_order(ptr, plan.pairs.cpu().numpy())
+    device = plan.node_ptr.device
+    return dataclasses.replace(
+        plan, n_dof=plan.n_dof + plan.dm,
+        out_shape=(plan.n_dof + plan.dm, plan.out_shape[1]),
+        node_ptr=torch.as_tensor(ptr, device=device),
+        node_order=torch.as_tensor(order, device=device))
 
 
 def build_scatter_plan(pattern: ELLPattern, device,
@@ -138,6 +173,8 @@ def build_scatter_plan(pattern: ELLPattern, device,
         out_shape=out_shape,
         node_ptr=torch.as_tensor(node_ptr, device=device),
         pairs=torch.as_tensor(pairs, device=device),
+        node_order=torch.as_tensor(first_pair_order(node_ptr, pairs),
+                                   device=device),
         positions=torch.as_tensor(positions.reshape(-1).astype(index),
                                   device=device),
         dia_columns=dia_columns,

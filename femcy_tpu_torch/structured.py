@@ -82,6 +82,17 @@ class StructuredPlan:
                 shifts[o * 4 + p // 3] = shift
         return shifts
 
+    @functools.cached_property
+    def force_tile(self) -> Dict[str, Tuple[int, int, int]]:
+        """M5's tile by dtype name: (ty, tz, lx), a block's ty x tz grid
+        nodes in (y, z) marching over lx node planes in x, sized for the
+        current card's SMs (kernels.structured_force.force_tile)."""
+        from femcy_tpu_torch.kernels.structured_force import card_sms, force_tile
+
+        sms = card_sms()
+        return {name: force_tile(self.nx, self.ny, self.nz, name, sms)
+                for name in ("float32", "float64")}
+
 
 def _box_info(mesh: FEMesh) -> dict:
     info = mesh.structure

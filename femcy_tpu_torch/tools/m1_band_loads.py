@@ -24,6 +24,7 @@ import ctypes
 import hashlib
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -308,12 +309,32 @@ def bulk_ring(cdll, Ke, plan):
     return out
 
 
+_SLEEP_CYCLES_PER_MS = []
+
+
 def cuda_ms(fn, reps: int = 20) -> float:
-    """Mean milliseconds of ``fn()`` over ``reps`` runs after one warm-up."""
+    """Mean device milliseconds of ``fn()`` over ``reps`` runs, by CUDA
+    events, after a warm-up; the runs are queued behind a device spin
+    longer than the host takes to queue them, so a kernel shorter than
+    its launch is timed at the card's pace (as ``chip_smoke.cuda_ms``)."""
+    if not _SLEEP_CYCLES_PER_MS:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(10_000_000)
+        end.record()
+        torch.cuda.synchronize()
+        _SLEEP_CYCLES_PER_MS.append(10_000_000 / start.elapsed_time(end))
     fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(int(min(3.0 * reps * host_ms + 1.0, 300.0)
+                          * _SLEEP_CYCLES_PER_MS[0]))
     start.record()
     for _ in range(reps):
         fn()

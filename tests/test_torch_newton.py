@@ -598,34 +598,54 @@ def _collapsed_hexes():
 
 
 def _m4_walk(f_elem, plan):
-    """The M4 kernel's rule in numpy: one node at a time, dm sums from +0,
-    its pairs walked in list order (a flagged ~p decoded to p), each
-    adding f_e[p * dm : p * dm + dm]."""
+    """The M4 kernel's rule in numpy: group t sums node node_order[t], dm
+    sums from +0; it takes the node's pairs in list order (a flagged ~p
+    decoded to p) eight at a time, one a lane, and adds the eight records
+    f_e[p * dm : p * dm + dm] in lane order (the shuffle chain)."""
     ptr, pairs = plan.node_ptr.numpy(), plan.pairs.numpy()
     flat = f_elem.reshape(-1, plan.dm)
-    out = np.empty((ptr.shape[0] - 1, plan.dm), dtype=f_elem.dtype)
-    for n in range(ptr.shape[0] - 1):
+    out = np.full((ptr.shape[0] - 1, plan.dm), np.nan, dtype=f_elem.dtype)
+    for n in plan.node_order.numpy():
         acc = np.zeros(plan.dm, dtype=f_elem.dtype)
-        for t in range(ptr[n], ptr[n + 1]):
-            p = int(pairs[t])
-            acc += flat[~p if p < 0 else p]
+        for base in range(ptr[n], ptr[n + 1], 8):
+            ids = pairs[base:min(base + 8, ptr[n + 1])]
+            lanes = flat[np.where(ids < 0, ~ids, ids)]  # the group's loads
+            for j in range(lanes.shape[0]):
+                acc += lanes[j]
         out[n] = acc
     return out.reshape(-1)
 
 
-@pytest.mark.parametrize("name", ["tet4", "tri3", "hex20", "collapsed-hex8"])
+@pytest.mark.parametrize("name", ["tet4", "tri3", "hex20", "collapsed-hex8",
+                                  "orphan-tet4"])
 def test_internal_force_kernel_walk_is_bit_equal(name):
     tm = {
         "tet4": lambda: convert.mesh_from(F.meshgen.unstructured_box_tets(3)),
         "tri3": lambda: convert.mesh_from(F.meshgen.rect_tris(4, 3)),
         "hex20": lambda: convert.mesh_from(F.meshgen.box_hexes20(2, 1, 1)),
         "collapsed-hex8": _collapsed_hexes,
+        "orphan-tet4": lambda: convert.mesh_from(
+            F.meshgen.unstructured_box_tets(3)),
     }[name]()
     plan = kscat.build_scatter_plan(build_pattern(tm), "cpu")
+    elements = tm.elements.astype(np.int64)
+    if name == "orphan-tet4":
+        # one more node, numbered 7, that no element names
+        plan = kscat.with_orphan_node(plan, 7)
+        elements = elements + (elements >= 7)
     assert ((plan.pairs < 0).any()) == (name == "collapsed-hex8")
+    # node_order: every node once, sorted by its first pair, orphans last
+    ptr, pairs = plan.node_ptr.numpy(), plan.pairs.numpy()
+    order = plan.node_order.numpy()
+    assert order.dtype == np.int32
+    np.testing.assert_array_equal(np.sort(order), np.arange(ptr.shape[0] - 1))
+    listed = np.diff(ptr)[order] > 0
+    assert not (~listed[:-1] & listed[1:]).any()  # the empty ones last
+    assert listed.sum() == ptr.shape[0] - 1 - (name == "orphan-tet4")
+    first = pairs[ptr[:-1][order[listed]]]
+    assert (np.diff(np.where(first < 0, ~first, first)) > 0).all()
     npe = tm.element.n_nodes
-    targets = (tm.elements.astype(np.int64)[:, :, None] * tm.dm
-               + np.arange(tm.dm)).reshape(-1)
+    targets = (elements[:, :, None] * tm.dm + np.arange(tm.dm)).reshape(-1)
     np.testing.assert_array_equal(kforce.force_targets(plan).numpy(), targets)
     for dtype in (np.float32, np.float64):
         f_elem = np.random.default_rng(6).standard_normal(
@@ -636,14 +656,17 @@ def test_internal_force_kernel_walk_is_bit_equal(name):
         # femcy_tpu's segment-sum of the same forces
         seg = jax.ops.segment_sum(
             jnp.asarray(f_elem.reshape(-1)), jnp.asarray(targets),
-            num_segments=tm.n_dof)
+            num_segments=plan.n_dof)
         np.testing.assert_array_equal(plain.numpy(), np.asarray(seg))
+        if name == "orphan-tet4":
+            assert not plain.numpy()[7 * tm.dm:8 * tm.dm].any()
 
 
 def _m5_walk(f_elem, plan):
-    """The M5 kernel's rule in numpy: one grid node at a time, 3 sums from
-    +0 over the 24 (orientation, local node) corner shifts in order, each
-    adding the values of cell node - shift where that cell is in the box."""
+    """The first M5 kernel's rule in numpy: one grid node at a time, 3 sums
+    from +0 over the 24 (orientation, local node) corner shifts in order,
+    each adding the values of cell node - shift where that cell is in the
+    box."""
     nx, ny, nz = plan.nx, plan.ny, plan.nz
     shifts = plan.force_shifts
     fg = f_elem.reshape(nx * ny * nz, 24, 3)
@@ -657,6 +680,55 @@ def _m5_walk(f_elem, plan):
             if 0 <= cx < nx and 0 <= cy < ny and 0 <= cz < nz:
                 acc += fg[(cx * ny + cy) * nz + cz, k]
         out[node] = acc
+    return out.reshape(-1)
+
+
+def _m5_tile_walk(f_elem, plan, tile):
+    """The M5 kernel's tiled slab march in numpy.  A block owns a (ty, tz)
+    tile of grid nodes and node planes [x0, x0 + lx); a ring of three
+    slabs holds the cells of x - 1 and x over the tile and one halo row at
+    -1 in y and z, each cell padded to 16 bytes past its 72 values (NaN
+    where nothing was copied: a cell outside the box, or padding).  After
+    plane x's sums, slab x + 2 replaces slab x - 1.  Thread (i, y, z) adds
+    value i of record k of cell node - shift k, for k in order, from +0,
+    where that cell lies in the box."""
+    nx, ny, nz = plan.nx, plan.ny, plan.nz
+    ty, tz, lx = tile
+    S = 72 + 16 // f_elem.itemsize
+    cells = f_elem.reshape(nx, ny, nz, 72)
+    out = np.full((nx + 1, ny + 1, nz + 1, 3), np.nan, dtype=f_elem.dtype)
+    i, yl, zl = np.meshgrid(np.arange(3), np.arange(ty), np.arange(tz),
+                            indexing="ij")
+    for y0 in range(0, ny + 1, ty):
+        for z0 in range(0, nz + 1, tz):
+            y, z = y0 + yl, z0 + zl
+            mine = (y <= ny) & (z <= nz)
+            cy_lo, cy_hi = max(y0 - 1, 0), min(y0 + ty - 1, ny - 1)
+            cz_lo, cz_hi = max(z0 - 1, 0), min(z0 + tz - 1, nz - 1)
+            for x0 in range(0, nx + 1, lx):
+                x_end = min(x0 + lx, nx + 1)
+                ring = np.full((3, ty + 1, tz + 1, S), np.nan, f_elem.dtype)
+
+                def fetch(cx, b):
+                    ring[b] = np.nan
+                    if 0 <= cx < nx and cx < x_end:
+                        ring[b, cy_lo - y0 + 1:cy_hi - y0 + 2,
+                             cz_lo - z0 + 1:cz_hi - z0 + 2, :72] = cells[
+                                 cx, cy_lo:cy_hi + 1, cz_lo:cz_hi + 1]
+
+                for m in range(3):
+                    fetch(x0 - 1 + m, m)
+                for s in range(x_end - x0):
+                    x = x0 + s
+                    acc = np.zeros(i.shape, dtype=f_elem.dtype)
+                    for k, (dx, dy, dz) in enumerate(plan.force_shifts):
+                        use = ((0 <= x - dx < nx) & (y - dy >= 0)
+                               & (y - dy < ny) & (z - dz >= 0) & (z - dz < nz))
+                        slab = ring[s % 3] if dx else ring[(s + 1) % 3]
+                        v = slab[yl + 1 - dy, zl + 1 - dz, 3 * k + i]
+                        acc = np.where(use, acc + v, acc)
+                    out[x, y[mine], z[mine], i[mine]] = acc[mine]
+                    fetch(x + 2, s % 3)
     return out.reshape(-1)
 
 
@@ -684,6 +756,53 @@ def test_structured_force_kernel_walk_is_bit_equal(dims):
                                                      jplan, jm)))
 
 
+@pytest.mark.parametrize("dims, tile", [
+    ((1, 1, 1), None), ((3, 2, 4), None), ((4, 3, 2), None),
+    ((5, 6, 19), None),            # no multiple of the plan's tiles
+    ((5, 6, 19), (2, 3, 2)),       # nor of a small one
+    ((3, 2, 4), (1, 1, 1)),
+    ((2, 3, 1), (4, 16, 8)),       # thinner than the tile
+])
+def test_structured_force_tile_walk_is_bit_equal(dims, tile):
+    jm = F.meshgen.box_tets(*dims)
+    tm = convert.mesh_from(jm)
+    plan = tstr.build_structured_plan(tm, tdia.build_structured_dia_pattern(tm))
+    assert set(plan.force_shifts.reshape(-1)) <= {0, 1}  # one halo cell
+    jplan = jstr.build_structured_plan(jm, jdia.build_structured_dia_pattern(jm))
+    for dtype in (np.float32, np.float64):
+        f_elem = np.random.default_rng(7).standard_normal(
+            (tm.n_elements, 4, 3)).astype(dtype)
+        walk = _m5_tile_walk(
+            f_elem, plan, tile or plan.force_tile[np.dtype(dtype).name])
+        plain = ksforce.force_scatter(torch.from_numpy(f_elem), plan, tm)
+        np.testing.assert_array_equal(walk, plain.numpy())
+        np.testing.assert_array_equal(
+            walk, np.asarray(jstr.structured_force_scatter(
+                jnp.asarray(f_elem), jplan, jm)))
+
+
+def test_structured_force_tile_fills_the_card_in_one_wave():
+    """The plan's M5 tile: FORCE_TILES' (ty, tz), and lx cut so that the
+    blocks fill the card's SMs once where the box allows (an H100 SXM's
+    132 where no card is visible)."""
+    for dims in ((56, 56, 56), (16, 16, 16), (5, 6, 19), (1, 1, 1)):
+        tm = convert.mesh_from(F.meshgen.box_tets(*dims))
+        plan = tstr.build_structured_plan(
+            tm, tdia.build_structured_dia_pattern(tm))
+        nx, ny, nz = dims
+        for name, (ty, tz, per_sm) in ksforce.FORCE_TILES.items():
+            assert plan.force_tile[name][:2] == (ty, tz)
+            lx = plan.force_tile[name][2]
+            tiles = -(-(ny + 1) // ty) * -(-(nz + 1) // tz)
+            blocks = tiles * -(-(nx + 1) // lx)
+            slots = ksforce.card_sms() * per_sm
+            assert blocks <= max(slots, tiles)
+            assert lx == 1 or tiles * -(-(nx + 1) // (lx - 1)) > slots
+    assert {name: ksforce.force_tile(56, 56, 56, name, ksforce.H100_SMS)
+            for name in ksforce.FORCE_TILES} == {"float32": (8, 8, 10),
+                                                 "float64": (6, 8, 19)}
+
+
 def test_force_wrappers_reject_bad_operands():
     tm = convert.mesh_from(F.meshgen.box_tets(2, 2, 2))
     plan = kscat.build_scatter_plan(build_pattern(tm), "cpu")
@@ -697,6 +816,36 @@ def test_force_wrappers_reject_bad_operands():
             call(f.to(torch.int64))
         with pytest.raises(ValueError):
             call(f.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError):  # the launch takes CUDA tensors only
+        ksforce.launch_at(f, splan, (1, 1, 1))
+
+
+@pytest.mark.parametrize("name", ["tet4", "collapsed-hex8"])
+def test_m4_read_sectors_match_a_count_load_by_load(name):
+    """M4's sector bytes against a count in plain Python: the set of
+    32-byte sectors that each record load and each node's run of pair
+    ids touch, and the sum of their sizes alone."""
+    tm = {"tet4": lambda: convert.mesh_from(F.meshgen.unstructured_box_tets(3)),
+          "collapsed-hex8": _collapsed_hexes}[name]()
+    plan = kscat.build_scatter_plan(build_pattern(tm), "cpu")
+    ptr, pairs = plan.node_ptr.numpy(), plan.pairs.numpy()
+    for itemsize in (4, 8):
+        rec = plan.dm * itemsize
+        f_e, f_e_each, listed, listed_each = set(), 0, set(), 0
+        for n in range(ptr.shape[0] - 1):
+            run = set()
+            for t in range(ptr[n], ptr[n + 1]):
+                p = int(pairs[t]) if pairs[t] >= 0 else ~int(pairs[t])
+                span = set(range(p * rec // 32, (p * rec + rec - 1) // 32 + 1))
+                f_e |= span
+                f_e_each += len(span)
+                run.add(t * 4 // 32)
+            listed |= run
+            listed_each += len(run)
+        assert kforce.m4_read_sectors(plan, itemsize) == {
+            "f_e distinct": 32 * len(f_e), "f_e per thread": 32 * f_e_each,
+            "pairs distinct": 32 * len(listed),
+            "pairs per thread": 32 * listed_each}
 
 
 def test_every_kernel_entry_binds_all_its_parameters():
