@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive femcy_tpu_torch's main path once on one NVIDIA GPU and check it.
+"""Drive femcy_tpu_torch's main paths once on one NVIDIA GPU and check them.
 
 Run from the repository root, with no arguments:
 
@@ -138,7 +138,37 @@ Phases (any failure raises, and the script exits non-zero):
    direct-solve limit; M4 and M1), and box_tets(16, 16, 16) with the
    reference's secant tangent (``geometric_stiffness=False``: P3 from the
    current coordinates, and M5), the same checks without the warm solve.
-14. print the launch counts and the CG iterations of every path, each
+14. CLI, ELL (the user's entry point): unstructured_box_tets(56) written
+   as a C3D4 .inp (``inp_text``, with numpy: z=0 clamped, ux=0.01 on
+   z=1, a pressure of 2 on the x=max face) and run in this process by
+   ``femcy_tpu_torch.cli.main([path, "--stress", "2", "--save-vtk",
+   ..., "--save-html", ...])`` with stdout captured and every launch
+   counter zeroed just before and read just after.  Checks: rc 0; M1
+   launched once and M2 once per CG iteration, no other kernel; the
+   printed model line and observables equal to the strings formatted
+   from a FEMSystem built here from ``read_inp`` of the same file; the
+   VTK's POINTS and CELLS counts and cell types (10), the largest
+   |value| of its displacement block equal to the printed max |dof| at
+   the printed precision; the HTML payload's triangle count equal to the
+   mesh's surface triangles.  Prints the walls of writing the .inp and
+   of the CLI's stages (read: the routing scan, ``read_inp_multi`` and
+   ``read_inp``; setup; solve; post: stress, extrapolation and the host
+   copies; vtk; html), each beside the card's name and power limit.
+15. CLI, general DIA: the same for box_hexes(48, 48, 48) as a C3D8 .inp
+   (M1 once, P1 once per CG iteration, cell type 12), the CLI run inside
+   ``utils.timing.device_trace``: the trace file must exist and name
+   P1's kernel, ``dia_spmv_kernel``.
+16. CLI, nonlinear: an nlgeom .inp on unstructured_box_tets(12) (z=0
+   clamped, uz = -0.1 on z=1 in four increments), run plain and with
+   ``--stabilize 2e-4``: rc 0, the pinned increment count from the
+   printed solve line, M4 and M1 launched equally often, at least once
+   per increment, and no other kernel (direct solves).
+17. Stabilized Newton at full width: the ELL twist of phase 12 and the
+   box secant twist of phase 13 with ``stabilize_factor=2e-4``, held as
+   those are (pinned histories, M4 and M1, or M5 and P3, once per
+   evaluation), with the dissipated energy finite and positive and the
+   f64 host residual extended by the last increment's viscous force.
+18. print the launch counts and the CG iterations of every path, each
    beside the count that the deterministic kernels have always given, and
    fail on another count (a kernel changed its rounding), and the Newton
    histories beside the pinned ones; then the kernel table as one JSON
@@ -156,6 +186,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import pathlib
 import subprocess
 import sys
 import time
@@ -180,9 +211,11 @@ HEX = (48, 48, 48)
 INP_NX = 12
 #: the CG iterations of each path, as the deterministic kernels have given
 #: them since they were ported; another count means a kernel changed its
-#: rounding
+#: rounding (the CLI's models are the slices' meshes with a pressure added
+#: on the x=max face, hence their other counts)
 EXPECTED_CG_ITERS = {"multigrid box": 6, "jacobi box": 257, "ELL slice": 312,
-                     "general-DIA slice": 163, ".inp model, CG": 260}
+                     "general-DIA slice": 163, ".inp model, CG": 260,
+                     "CLI, ELL": 306, "CLI, general DIA": 166}
 #: the Newton cases' time schedule: the top face turned by time * pi about
 #: the box axis, 3.6 degrees in five increments.  Each increment's first
 #: Newton iterate puts its whole turn into the top element layer, 1/56
@@ -197,7 +230,17 @@ TWIST = {"ini_inc": 0.004, "max_time": 0.02, "min_inc": 1e-5,
 EXPECTED_NEWTON = {"box Newton": [(2, True)] * 5, "ELL Newton": [(2, True)] * 5,
                    "consistent tangent": [(1, True)] * 5,
                    "Jacobian reuse": [(1, True)] * 5,
-                   "box secant": [(1, True)] * 5}
+                   "box secant": [(1, True)] * 5,
+                   "ELL Newton, stabilized": [(2, True)] * 5,
+                   "box secant, stabilized": [(1, True)] * 5}
+#: the dissipated-energy fraction of the stabilized cases (the CLI's
+#: ``--stabilize`` and ``SolverConfig.stabilize_factor``)
+STABILIZE = 2e-4
+#: the geometric-nonlinear .inp model of the CLI: unstructured_box_tets(12),
+#: z=0 clamped, the z=1 face pushed down by 0.1 in four increments (with
+#: 0.2 the CPU run cut back; 0.1 converges in every increment)
+NL_NX, NL_UZ, NL_STATIC = 12, -0.1, "0.25, 1., 1e-05, 0.25"
+EXPECTED_CLI_INCREMENTS = {"CLI nonlinear": 4, "CLI nonlinear, stabilized": 4}
 
 
 def check(ok: bool, what: str) -> None:
@@ -1457,37 +1500,51 @@ def general_slice_run(torch, card, mesh, layout: str, host_K):
     return launches, iters
 
 
-def inp_text(mesh) -> str:
-    """``mesh`` (C3D4) as an Abaqus .inp: z=0 clamped, ux=0.01 on z=1, a
-    pressure of 2 on the x=max face through a *Surface of per-face-number
-    element sets."""
-    lines = ["*Heading", "chip_smoke general mesh", "*Node"]
-    lines += [f"{i + 1}, " + ", ".join(repr(float(c)) for c in p)
-              for i, p in enumerate(mesh.nodes)]
-    lines.append("*Element, type=C3D4")
-    lines += [f"{e + 1}, " + ", ".join(str(int(n) + 1) for n in conn)
-              for e, conn in enumerate(mesh.elements)]
+def inp_text(mesh, etype: str = "C3D4",
+             top=("top, 1, 1, 0.01",), pressure: float | None = 2.0,
+             nlgeom: bool = False, static: str = "1., 1., 1e-05, 1.") -> str:
+    """``mesh`` as an Abaqus .inp of element type ``etype``: z=0 clamped,
+    the ``top`` *Boundary lines on the z=max node set (ux=0.01 by
+    default), and unless ``pressure`` is None a pressure on the x=max face
+    through a *Surface of per-face-number element sets.  Written with
+    numpy, a few seconds at 1M elements."""
+    import io
+
     x = mesh.nodes[:, 0]
-    faces = {}
-    for e, conn in enumerate(mesh.elements):
-        for k, facets in enumerate(mesh.element.inp_surface_num):
-            nodes = [int(conn[ln]) for f in facets for ln in f]
-            if (x[nodes] > x.max() - 1e-9).all():
-                faces.setdefault(k + 1, []).append(e + 1)
-    bottom, top = z_faces(mesh)
-    for name, ids in (("bot", bottom), ("top", top)):
+    buf = io.StringIO()
+    buf.write("*Heading\nchip_smoke general mesh\n*Node\n")
+    ids = np.arange(1, mesh.n_nodes + 1)[:, None]
+    np.savetxt(buf, np.hstack([ids, mesh.nodes]),
+               fmt=["%d"] + ["%.17g"] * mesh.nodes.shape[1], delimiter=", ")
+    buf.write(f"*Element, type={etype}\n")
+    conn = mesh.elements.astype(np.int64) + 1
+    np.savetxt(buf, np.hstack([np.arange(1, mesh.n_elements + 1)[:, None],
+                               conn]), fmt="%d", delimiter=", ")
+    lines = []
+    bottom, top_nodes = z_faces(mesh)
+    for name, nodes in (("bot", bottom), ("top", top_nodes)):
         lines += [f"*Nset, nset={name}, instance=a",
-                  ", ".join(str(i + 1) for i in ids)]
-    for k, eles in faces.items():
-        lines += [f"*Elset, elset=_x{k}, internal, instance=a",
-                  ", ".join(str(e) for e in eles)]
-    lines.append("*Surface, type=ELEMENT, name=xload")
-    lines += [f"_x{k}, S{k}" for k in faces]
+                  ", ".join(str(i + 1) for i in nodes)]
+    load = []
+    if pressure is not None:
+        faces = {}
+        for k, facets in enumerate(mesh.element.inp_surface_num):
+            local = [ln for f in facets for ln in f]
+            on = (x[mesh.elements[:, local]] > x.max() - 1e-9).all(axis=1)
+            if on.any():
+                faces[k + 1] = np.nonzero(on)[0] + 1
+        for k, eles in faces.items():
+            lines += [f"*Elset, elset=_x{k}, internal, instance=a",
+                      ", ".join(str(e) for e in eles)]
+        lines.append("*Surface, type=ELEMENT, name=xload")
+        lines += [f"_x{k}, S{k}" for k in faces]
+        load = ["*Dsload", f"xload, P, {pressure!r}"]
     lines += ["*Material, name=m", "*Elastic", "1000., 0.3",
-              "*Step, name=s, nlgeom=NO", "*Static", "1., 1., 1e-05, 1.",
-              "*Boundary", "bot, 1, 1", "bot, 2, 2", "bot, 3, 3",
-              "top, 1, 1, 0.01", "*Dsload", "xload, P, 2.", "*End Step"]
-    return "\n".join(lines) + "\n"
+              f"*Step, name=s, nlgeom={'YES' if nlgeom else 'NO'}",
+              "*Static", static, "*Boundary", "bot, 1, 1", "bot, 2, 2",
+              "bot, 3, 3", *top, *load, "*End Step"]
+    buf.write("\n".join(lines) + "\n")
+    return buf.getvalue()
 
 
 def inp_run(torch):
@@ -1627,13 +1684,21 @@ def newton_run(torch, card, label: str, mesh, config: dict, force: str,
         check(tuple(t_.shape) == shape, f"{label}: {what} shape")
         check(bool(torch.isfinite(t_).all()), f"{label}: {what} not finite")
     check(np.isfinite(energy) and energy > 0.0, f"{label}: energy {energy}")
+    stab = config.get("stabilize_factor", 0.0) > 0.0
+    e_stab = report.stabilization_energy
+    check(not stab or (np.isfinite(e_stab) and e_stab > 0.0),
+          f"{label}: stabilization energy {e_stab}")
 
-    # the f64 host residual at the final dof against the device's
+    # the f64 host residual at the final dof against the device's, with
+    # the viscous force of the last increment when stabilized
     fixed_d, sval_d = system._last_dirichlet
     fixed = fixed_d.cpu().numpy()
     t = time.perf_counter()
     r_host = internal_force_host(mesh, mat, system.dof.cpu().numpy())
     host_s = time.perf_counter() - t
+    if stab:
+        r_host += (system._stab_scale * system._stab_diag
+                   * (system.dof - system._stab_ref)).cpu().numpy()
     r_host[fixed] = 0.0
     rms_host = float(np.sqrt(np.mean(r_host * r_host)))
     rms_dev = report.increments[-1].residual
@@ -1651,7 +1716,8 @@ def newton_run(torch, card, label: str, mesh, config: dict, force: str,
           f"residual {rms_host:.6e} (rel {rel_rms:.3e}; vector rel "
           f"{rel_vec:.3e}; host {host_s:.2f} s), max top-face displacement "
           f"{turned:.6f}, max mises {float(mises.max()):.6g}, energy "
-          f"{energy:.6g}", flush=True)
+          f"{energy:.6g}" + (f", stabilization energy {e_stab:.6e}"
+                             if stab else ""), flush=True)
     del r_dev, strain, stress, mises
     if warm:
         report2, wall2, split2, evals2, history2, cg2 = one_solve()
@@ -1664,6 +1730,219 @@ def newton_run(torch, card, label: str, mesh, config: dict, force: str,
     del system
     torch.cuda.empty_cache()
     return launches, history
+
+
+class _StageWalls:
+    """Collects the CLI's "stage <name>: <s> s" log records (its INFO
+    records on the femcy_tpu_torch.cli logger) while installed."""
+
+    def __init__(self):
+        import logging
+
+        self.walls = {}
+        self._log = logging.getLogger("femcy_tpu_torch.cli")
+        self._handler = logging.Handler(logging.INFO)
+        self._handler.emit = self._emit
+
+    def _emit(self, record):
+        if record.msg.startswith("stage "):
+            self.walls[record.args[0]] = record.args[1]
+
+    def __enter__(self):
+        import logging
+
+        self._level = self._log.level
+        self._log.setLevel(logging.INFO)
+        self._log.addHandler(self._handler)
+        return self.walls
+
+    def __exit__(self, *exc):
+        self._log.removeHandler(self._handler)
+        self._log.setLevel(self._level)
+
+
+def run_cli(argv):
+    """``femcy_tpu_torch.cli.main(argv)`` in this process, every launch
+    counter zeroed just before and read just after.  Returns (rc, stdout,
+    launches, stage walls, wall)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from femcy_tpu_torch import cli
+
+    out = io.StringIO()
+    zero_launches()
+    t = time.perf_counter()
+    with _StageWalls() as walls, contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    return rc, out.getvalue(), read_launches(), walls, wall
+
+
+def cli_linear_run(torch, card, label: str, mesh, etype: str, spmv: str,
+                   trace: bool):
+    """Phases 14 and 15: ``mesh`` written as an ``etype`` .inp (the
+    boundary model of ``inp_text``) and run through the CLI on the card
+    with ``--stress 2 --save-vtk --save-html`` (with ``trace``, inside
+    ``device_trace``).  Checks: rc 0, M1 launched once and the layout's
+    SpMV ``spmv`` once per CG iteration, no other kernel; the printed lines
+    equal to those formatted from a FEMSystem built here from a
+    ``read_inp`` of the same file (the kernels are bit-reproducible); the
+    VTK header counts and cell types, its displacement block's largest
+    |value| equal to the printed max |dof|; the HTML's triangle count
+    equal to the mesh's surface triangles; with ``trace``, a Chrome trace
+    that names P1's kernel.  Returns (launches, CG iterations)."""
+    import json as _json
+    import re
+    import tempfile
+
+    from femcy_tpu_torch import (
+        FEMesh,
+        FEMSystem,
+        SolverConfig,
+        material_from_inp,
+        read_inp,
+    )
+    from femcy_tpu_torch.io.export import _VTK_CELL
+    from femcy_tpu_torch.utils.timing import device_trace
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path, vtk, html = f"{tmp}/model.inp", f"{tmp}/out.vtk", f"{tmp}/out.html"
+        t = time.perf_counter()
+        with open(path, "w") as f:
+            f.write(inp_text(mesh, etype))
+        write_s = time.perf_counter() - t
+        argv = [path, "--stress", "2", "--save-vtk", vtk, "--save-html", html]
+        trace_dir = f"{tmp}/trace" if trace else None
+        with device_trace(trace_dir):
+            rc, out, launches, walls, cli_s = run_cli(argv)
+        check(rc == 0, f"{label}: exit code {rc}")
+        print(f"{label}: {mesh.n_elements} {etype}, {mesh.n_dof} dofs; "
+              f"stdout of the CLI:\n{out}", end="", flush=True)
+
+        # the same model through FEMSystem, formatted as the CLI formats it
+        t = time.perf_counter()
+        inp = read_inp(path)
+        read_s = time.perf_counter() - t
+        mat = material_from_inp(inp.material_type, inp.material_params,
+                                inp.element_type)
+        mesh_r = FEMesh(inp.nodes, inp.elements, inp.element)
+        system = FEMSystem(mesh_r, mat, inp.geometric_nonlinear,
+                           SolverConfig(), device=DEVICE)
+        check((system.dia is not None) == (spmv == "dia_spmv"),
+              f"{label}: layout")
+        report = system.solve(inp)
+        check(report.success, f"{label}: direct FEMSystem solve")
+        iters = system._last_cg_iters
+        energy = system.elastic_energy()
+        _, stress, mises = system.compute_strain_stress()
+        comp = stress[:, :, 2, 2]
+        want = [
+            f"model: {mesh_r.n_elements} {etype} elements, {mesh_r.n_nodes} "
+            f"nodes, {mesh_r.n_dof} dofs, geometric_nonlinear=False",
+            f"total elastic energy = {energy:.6g}",
+            "max Mises stress at integration points = "
+            f"{float(mises.max()):.6g}",
+            "max nodal (extrapolated) Mises stress = "
+            f"{float(system.extrapolate(mises).max()):.6g}",
+            f"max |dof| (displacement) = {float(system.dof.abs().max()):.6g}",
+            "max |stress[22]| at integration points = "
+            f"{float(comp.abs().max()):.6g}",
+            f"max nodal stress[22] = {float(system.extrapolate(comp).max()):.6g}",
+        ]
+        del stress, mises, comp, system
+        torch.cuda.empty_cache()
+        got = [ln for ln in out.splitlines()
+               if ln.startswith("model:") or " = " in ln]
+        check(got == want, f"{label}: CLI printed {got}, FEMSystem gives {want}")
+        check(launches["ell_scatter"] == 1 and launches[spmv] == iters > 0,
+              f"{label}: launches {launches} for {iters} CG iterations")
+        for name, n in launches.items():
+            if name not in ("ell_scatter", spmv):
+                check(n == 0, f"{label}: {name} launched {n} times")
+
+        # the files
+        E, N = mesh_r.n_elements, mesh_r.n_nodes
+        npe = mesh_r.element.n_nodes
+        with open(vtk) as f:
+            text = f.read()
+        vtk_mb = len(text) / 1e6
+        check(f"\nPOINTS {N} double\n" in text, f"{label}: VTK POINTS")
+        check(f"\nCELLS {E} {E * (npe + 1)}\n" in text, f"{label}: VTK CELLS")
+        types = text.split(f"CELL_TYPES {E}\n")[1].split("\n", E)[:E]
+        check(set(types) == {str(_VTK_CELL[mesh_r.element.name])},
+              f"{label}: VTK cell types {set(types)}")
+        disp = text.split("VECTORS displacement double\n")[1].split("\n", N)[:N]
+        vmax = float(np.abs(np.array(" ".join(disp).split(), float)).max())
+        del text, types, disp
+        printed = float(want[4].split(" = ")[1])
+        check(abs(vmax - printed) <= 5e-6 * printed,
+              f"{label}: VTK max |displacement| {vmax!r}, printed {printed!r}")
+        with open(html) as f:
+            payload = _json.loads(re.search(r"const D=(\{.*?\});",
+                                            f.read()).group(1))
+        n_tri = len(payload["tri"]) // 3
+        del payload
+        check(n_tri == mesh_r.surface_triangles[0].shape[0],
+              f"{label}: HTML triangles {n_tri}")
+        trace_note = ""
+        if trace:
+            files = sorted(pathlib.Path(trace_dir).iterdir())
+            check(len(files) == 1, f"{label}: trace files {files}")
+            trace_text = files[0].read_text()
+            check("dia_spmv_kernel" in trace_text,
+                  f"{label}: the trace does not name dia_spmv_kernel")
+            trace_note = (f"; device trace {len(trace_text) / 1e6:.1f} MB, "
+                          "names dia_spmv_kernel")
+    stages = ", ".join(f"{k} {v:.3f} s" for k, v in walls.items())
+    print(f"{label} on {card}: rc 0, observables equal to FEMSystem's, CG "
+          f"{iters} iterations, launches M1 {launches['ell_scatter']} "
+          f"{spmv} {launches[spmv]}; walls: write .inp {write_s:.3f} s, CLI "
+          f"{cli_s:.3f} s ({stages}); read_inp alone {read_s:.3f} s; VTK "
+          f"{vtk_mb:.1f} MB, POINTS {N}, CELLS {E}, max |displacement| "
+          f"{vmax:.9g}; HTML {n_tri} triangles{trace_note}", flush=True)
+    return launches, iters
+
+
+def cli_nonlinear_run(torch, card, label: str, extra):
+    """Phase 16: the geometric-nonlinear .inp model (``NL_NX``: z=0
+    clamped, uz ``NL_UZ`` on z=1 in ``NL_STATIC``'s increments) through
+    the CLI on the card with ``extra`` flags.  Checks: rc 0, converged in
+    the pinned number of increments (``EXPECTED_CLI_INCREMENTS``), M4 and
+    M1 launched equally often and at least once per increment, no other
+    kernel (the solves are direct).  Returns (launches, increments)."""
+    import re
+    import tempfile
+
+    from femcy_tpu_torch.meshgen import unstructured_box_tets
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/nonlinear.inp"
+        with open(path, "w") as f:
+            f.write(inp_text(unstructured_box_tets(NL_NX),
+                             top=(f"top, 3, 3, {NL_UZ!r}",), pressure=None,
+                             nlgeom=True, static=NL_STATIC))
+        rc, out, launches, walls, wall = run_cli([path, *extra])
+    print(f"{label}: stdout of the CLI:\n{out}", end="", flush=True)
+    check(rc == 0, f"{label}: exit code {rc}")
+    solve = re.search(r"solve: converged in (\d+) increment", out)
+    n_inc = int(solve.group(1)) if solve else -1
+    want = EXPECTED_CLI_INCREMENTS[label]
+    check(n_inc == want, f"{label}: {n_inc} increments, {want} expected")
+    check(launches["internal_force"] == launches["ell_scatter"] >= n_inc,
+          f"{label}: M4 {launches['internal_force']}, M1 "
+          f"{launches['ell_scatter']}")
+    for name, n in launches.items():
+        if name not in ("internal_force", "ell_scatter"):
+            check(n == 0, f"{label}: {name} launched {n} times")
+    stages = ", ".join(f"{k} {v:.3f} s" for k, v in walls.items())
+    print(f"{label} on {card}: {n_inc} increments, M4 = M1 = "
+          f"{launches['internal_force']} evaluations; CLI {wall:.3f} s "
+          f"({stages})", flush=True)
+    return launches, n_inc
 
 
 def main() -> int:
@@ -1745,6 +2024,27 @@ def main() -> int:
         dict(geometric_stiffness=False, preconditioner="multigrid",
              linear_solver="cg"), "structured_force", "structured_fused",
         warm=False)
+
+    by_path["CLI, ELL"], iters["CLI, ELL"] = cli_linear_run(
+        torch, card, "CLI, ELL", unstructured_box_tets(UNSTRUCT[-1]), "C3D4",
+        "ell_spmv", trace=False)
+    by_path["CLI, general DIA"], iters["CLI, general DIA"] = cli_linear_run(
+        torch, card, "CLI, general DIA", box_hexes(*HEX), "C3D8", "dia_spmv",
+        trace=True)
+    for label, extra in (("CLI nonlinear", []),
+                         ("CLI nonlinear, stabilized",
+                          ["--stabilize", repr(STABILIZE)])):
+        by_path[label], _ = cli_nonlinear_run(torch, card, label, extra)
+    by_path["ELL Newton, stabilized"], histories["ELL Newton, stabilized"] = (
+        newton_run(torch, card, "ELL Newton, stabilized",
+                   unstructured_box_tets(UNSTRUCT[-1]),
+                   dict(stabilize_factor=STABILIZE), "internal_force",
+                   "ell_scatter", warm=False))
+    by_path["box secant, stabilized"], histories["box secant, stabilized"] = (
+        newton_run(torch, card, "box secant, stabilized", box_tets(16, 16, 16),
+                   dict(geometric_stiffness=False, preconditioner="multigrid",
+                        linear_solver="cg", stabilize_factor=STABILIZE),
+                   "structured_force", "structured_fused", warm=False))
     launches["structured_accumulate"] = by_path["box Newton"][
         "structured_accumulate"]
     launches["structured_force"] = by_path["box Newton"]["structured_force"]

@@ -36,7 +36,12 @@ __version__ = "0.1.0"
 from femcy_tpu_torch.config import SolverConfig  # noqa: E402
 from femcy_tpu_torch.mesh import FEMesh  # noqa: E402
 from femcy_tpu_torch.system import FEMSystem, mises_stress  # noqa: E402
-from femcy_tpu_torch.io.inp import InpModel, read_inp  # noqa: E402
+from femcy_tpu_torch.io.inp import (  # noqa: E402
+    InpBlockModel,
+    InpModel,
+    read_inp,
+    read_inp_multi,
+)
 from femcy_tpu_torch.materials import (  # noqa: E402
     LinearIsotropic,
     LinearIsotropicPlaneStrain,
@@ -53,6 +58,8 @@ __all__ = [
     "mises_stress",
     "InpModel",
     "read_inp",
+    "InpBlockModel",
+    "read_inp_multi",
     "LinearIsotropic",
     "LinearIsotropicPlaneStress",
     "LinearIsotropicPlaneStrain",

@@ -27,8 +27,6 @@ _LATER = (
      "multi-device sharding (ROADMAP slice I)"),
     ("fused_newton", bool, "the fused Newton step (ROADMAP slice G)"),
     ("device_loop", bool, "the one-program analysis loop (ROADMAP slice G)"),
-    ("stabilize_factor", lambda v: v != 0.0,
-     "static stabilization (ROADMAP slice G)"),
     ("dynamic_rescue", bool, "implicit-dynamics rescue (ROADMAP slice G)"),
 )
 

@@ -1,3 +1,21 @@
-from femcy_tpu_torch.io.inp import DirichletBC, InpModel, NeumannBC, read_inp
+from femcy_tpu_torch.io.colormap import femcy_colormap, get_color, resolve_cmap
+from femcy_tpu_torch.io.inp import (
+    DirichletBC,
+    InpBlockModel,
+    InpModel,
+    NeumannBC,
+    read_inp,
+    read_inp_multi,
+)
 
-__all__ = ["InpModel", "DirichletBC", "NeumannBC", "read_inp"]
+__all__ = [
+    "InpModel",
+    "InpBlockModel",
+    "DirichletBC",
+    "NeumannBC",
+    "read_inp",
+    "read_inp_multi",
+    "femcy_colormap",
+    "get_color",
+    "resolve_cmap",
+]

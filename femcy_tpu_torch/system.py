@@ -37,8 +37,10 @@ three layouts:
   geometric stiffness on the box from the current coordinates (P3);
 - the adaptive load-stepping loop of ``solve`` is the JAX package's:
   cutback, dt growth, the "extrapolate" predictor, the global or
-  per-increment residual reference (kept in checkpoints) and the failure
-  diagnosis.
+  per-increment residual reference (kept in checkpoints), the failure
+  diagnosis and static stabilization (``stabilize_factor``: a viscous
+  force on the volume-lumped diagonal, added to the residual before the
+  Dirichlet treatment and to the tangent's diagonal on every route).
 
 Every tensor lives on the ``device`` given to ``FEMSystem`` (``"cuda"`` by
 default, ``"cpu"`` when asked for; CUDA without a card raises) in one float
@@ -115,8 +117,8 @@ class SolveReport:
     increments: List[IncrementRecord]
     wall_time: float
     message: str = ""
-    #: energy dissipated by static stabilization; always 0 here (the
-    #: option is not ported yet, config._LATER)
+    #: energy dissipated by static stabilization (config.stabilize_factor);
+    #: 0 when stabilization is off
     stabilization_energy: float = 0.0
 
     @property
@@ -358,6 +360,12 @@ class FEMSystem:
         self.timer = Timer(verbose=config.verbose, sync=sync)
         #: last Dirichlet (fixed, sval) tensors applied by solve()
         self._last_dirichlet = None
+        #: static stabilization (config.stabilize_factor): the volume-lumped
+        #: diagonal, the increment's start state and the 0-d coefficient
+        #: C/dt of the viscous force scale*diag*(dof - ref); None when off
+        self._stab_diag: Optional[torch.Tensor] = None
+        self._stab_ref: Optional[torch.Tensor] = None
+        self._stab_scale: Optional[torch.Tensor] = None
 
         #: (prep, apply) of the SpMV kernel of the layout (P1 on DIA, M2 on
         #: ELL); None = the plain torch SpMV
@@ -427,7 +435,8 @@ class FEMSystem:
         stress and the internal nodal force (ref: stiffnessMtrx.py:609-644).
         The force is summed by M5 on the box and by M4 elsewhere (their
         plain versions on the CPU).  Returns (pinned dof, coords, dsdx,
-        vol, sigma, f_int)."""
+        vol, sigma, f_int) -- the stabilization force, when on, is already
+        folded into ``f_int``."""
         a = self._arrs
         dm = self.mesh.dm
         dof = bc_mod.pin_dof(dof, fixed, sval)
@@ -449,6 +458,12 @@ class FEMSystem:
             f_int = force_scatter(f_elem, self._structured_plan, self.mesh)
         else:
             f_int = scatter_force(f_elem, self._scatter_plan)
+        if self._stab_diag is not None:
+            # static stabilization: the viscous force, applied BEFORE the
+            # Dirichlet treatment so constrained rows stay zero-one; the
+            # matching tangent add happens in _newton_eval
+            d = self._stab_scale * self._stab_diag
+            f_int = f_int + d * (dof - self._stab_ref)
         return dof, coords, dsdx, vol, sigma, f_int
 
     def _newton_eval(self, dof, rhs, fixed, sval):
@@ -476,6 +491,14 @@ class FEMSystem:
             values = self._scatter(Ke)
         else:
             values = self._assemble_values(coords)
+        if self._stab_diag is not None:
+            # static stabilization: the tangent term matching the viscous
+            # force folded into f_int (every route's values are fresh)
+            d = self._stab_scale * self._stab_diag
+            if self.dia is not None:
+                values[:, self.dia.diag_idx] += d
+            else:
+                values.view(-1)[a["diag_slot"]] += d
         residual = f_int - rhs
         values, residual = self._dirichlet_newton(values, residual, fixed)
         return dof, values, residual, _rms(residual), vol
@@ -628,6 +651,21 @@ class FEMSystem:
         patterns_d = torch.as_tensor(patterns, dtype=self.dtype, device=self.device)
         tractions_d = torch.as_tensor(tractions, dtype=self.dtype, device=self.device)
 
+        # static stabilization setup (config.stabilize_factor): the damping
+        # matrix is the volume-lumped diagonal; the coefficient C is
+        # calibrated from the first converged increment's elastic energy
+        stab_on = cfg.stabilize_factor > 0.0 and self.geometric_nonlinear
+        stab_energy = 0.0
+        stab_c: Optional[float] = None  # calibrated (C); None until then
+        if stab_on:
+            if self._stab_diag is None:
+                self._stab_diag = self._lumped_volume_diag()
+                self._stab_ref = self.dof
+                self._stab_scale = self._scalar(0.0)
+        else:
+            # off, or switched off since a previous solve
+            self._stab_diag = self._stab_ref = self._stab_scale = None
+
         records: List[IncrementRecord] = []
         dof_old = self.dof
         # linear-extrapolation predictor state (config.predictor): the
@@ -664,6 +702,12 @@ class FEMSystem:
                 rhs = (tractions_d * load_ratio) @ patterns_d
             else:
                 rhs = torch.zeros_like(self.dof)
+            if stab_on:
+                self._stab_ref = dof_old
+                self._stab_scale = self._scalar(
+                    0.0 if stab_c is None  # calibration increment: undamped
+                    else stab_c / (self.time1 - self.time0)
+                )
 
             converged, newton_loops, res = self._advance_inc(
                 rhs, fixed_d, sval_d, on_newton
@@ -695,6 +739,27 @@ class FEMSystem:
             # grow dt after fast convergence (ref: stiffnessMtrx.py:702-704)
             if newton_loops <= cfg.newton_fast_iters:
                 self.dt = min(self.dt * cfg.dt_growth, max_inc)
+            if stab_on:
+                du_inc = self.dof - dof_old
+                mduu = float((self._stab_diag * du_inc * du_inc).sum())
+                if stab_c is None:
+                    # calibrate C so this increment WOULD have dissipated
+                    # stabilize_factor x its elastic energy (Abaqus's
+                    # dissipated-energy-fraction scheme, constant factor)
+                    elas0 = abs(self.elastic_energy())
+                    if mduu > 0.0 and elas0 > 0.0:
+                        stab_c = (
+                            cfg.stabilize_factor * elas0
+                            * (self.time1 - self.time0) / mduu
+                        )
+                        logger.info(
+                            "stabilization calibrated: C=%.3e "
+                            "(dissipated-energy fraction %.1e)",
+                            stab_c, cfg.stabilize_factor,
+                        )
+                else:
+                    # dissipated energy of this increment: f_damp . du
+                    stab_energy += float(self._stab_scale) * mduu
             dof_prev, dt_prev = dof_old, self.time1 - self.time0
             dof_old = self.dof
             self.time0 = self.time1
@@ -706,12 +771,39 @@ class FEMSystem:
             if on_increment is not None:
                 on_increment(self, records[-1])
 
+        if stab_on and success and stab_energy > 0.0:
+            elas = abs(self.elastic_energy())
+            if stab_energy > cfg.stabilize_energy_warn * max(elas, 1e-300):
+                logger.warning(
+                    "stabilization dissipated %.3e of energy (%.1f%% of the "
+                    "elastic energy %.3e) -- the viscous bias is NOT small; "
+                    "reduce stabilize_factor",
+                    stab_energy, 100.0 * stab_energy / max(elas, 1e-300), elas,
+                )
         return SolveReport(
             success=success,
             increments=records,
             wall_time=_time.time() - t_start,
             message=message,
+            stabilization_energy=stab_energy,
         )
+
+    def _scalar(self, value: float) -> torch.Tensor:
+        """A 0-d tensor of the system's dtype and device."""
+        return torch.tensor(value, dtype=self.dtype, device=self.device)
+
+    def _lumped_volume_diag(self) -> torch.Tensor:
+        """Unit-density volume-lumped nodal diagonal, one entry per dof:
+        each element spreads its volume equally over its nodes (host, once
+        per system).  The damping matrix of ``stabilize_factor``; its
+        absolute scale cancels against the calibrated coefficient."""
+        ev = self._arrs["vol0"].cpu().numpy().sum(axis=1)
+        npe = self.mesh.element.n_nodes
+        nodal = np.zeros(self.mesh.n_nodes)
+        np.add.at(nodal, self.mesh.elements.reshape(-1),
+                  np.repeat(ev / npe, npe))
+        return torch.as_tensor(np.repeat(nodal, self.mesh.dm),
+                               dtype=self.dtype, device=self.device)
 
     def _advance_inc(self, rhs, fixed, sval, on_newton=None):
         """One load increment (ref: stiffnessMtrx.py:714-822): assemble,

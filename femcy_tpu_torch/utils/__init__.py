@@ -1,3 +1,3 @@
-from femcy_tpu_torch.utils.timing import Timer
+from femcy_tpu_torch.utils.timing import Timer, device_trace
 
-__all__ = ["Timer"]
+__all__ = ["Timer", "device_trace"]

@@ -3,8 +3,9 @@
 Copy of ``femcy_tpu.utils.timing.Timer`` with one addition: an optional
 ``sync`` callable run before each section's clock is read, so a section
 around asynchronous CUDA work measures the work and not its enqueue
-(``FEMSystem`` passes ``torch.cuda.synchronize`` on a CUDA device).  The
-profiler hook (``device_trace``) comes with the CLI slice.
+(``FEMSystem`` passes ``torch.cuda.synchronize`` on a CUDA device); and
+``device_trace``, the twin of the JAX package's ``jax.profiler`` hook, on
+``torch.profiler``.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import logging
+import os
 import time
 from collections import defaultdict
 from typing import Callable, Dict, List, Optional
@@ -71,3 +73,29 @@ class Timer:
                 "count": len(recs),
             }
         return out
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: Optional[str]):
+    """Wrap a block in a ``torch.profiler`` trace when a log dir is given.
+
+    Records CPU activity, and CUDA activity too when a card is present; on
+    exit writes a Chrome trace (``trace-<pid>-<n>.json``, open it in
+    Perfetto or chrome://tracing) into ``log_dir`` and yields nothing.  It
+    never moves work between devices.  No-op when log_dir is None.
+    """
+    if log_dir is None:
+        yield
+        return
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield
+    n = sum(f.startswith(f"trace-{os.getpid()}-") for f in os.listdir(log_dir))
+    path = os.path.join(log_dir, f"trace-{os.getpid()}-{n}.json")
+    prof.export_chrome_trace(path)
+    logger.info("device trace written to %s", path)

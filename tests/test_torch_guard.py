@@ -32,8 +32,10 @@ def test_imports_and_solves_without_jax():
         from femcy_tpu_torch.kernels import (
             dia_spmv, ell_scatter, ell_spmv, internal_force,
             structured_accumulate, structured_force, structured_fused)
-        from femcy_tpu_torch import user
+        from femcy_tpu_torch import cli, user
+        from femcy_tpu_torch.io import colormap, export, html
         from femcy_tpu_torch.native import loader
+        from femcy_tpu_torch.utils import gif, timing
         from femcy_tpu_torch.solvers import cg, multigrid
         from femcy_tpu_torch import assembly_host, topology
 
@@ -100,6 +102,65 @@ def test_imports_and_solves_without_jax():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_cli_runs_without_matplotlib_and_pillow(tmp_path):
+    """As on the card's machine: with matplotlib and PIL absent, ``cli``
+    and ``io.export`` import and the CLI writes its VTK and HTML outputs;
+    only the PNG route needs them."""
+    inp = tmp_path / "m.inp"
+    inp.write_text(textwrap.dedent(
+        """\
+        *Node
+        1, 0., 0.
+        2, 1., 0.
+        3, 0., 1.
+        4, 1., 1.
+        *Element, type=CPS3
+        1, 1, 2, 4
+        2, 1, 4, 3
+        *Nset, nset=fix, instance=a
+        1, 3
+        *Nset, nset=pull, instance=a
+        2, 4
+        *Material, name=m
+        *Elastic
+        1000., 0.3
+        *Step, nlgeom=NO
+        *Static
+        1., 1., 1e-05, 1.
+        *Boundary
+        fix, 1, 2
+        pull, 1, 1, 0.01
+        *End Step
+        """))
+    script = textwrap.dedent(
+        f"""
+        import sys
+        for name in ("matplotlib", "PIL", "mpl_toolkits", "jax",
+                     "femcy_tpu"):
+            sys.modules[name] = None
+        from femcy_tpu_torch import cli
+        from femcy_tpu_torch.io import export, html
+        rc = cli.main([{str(inp)!r}, "--platform", "cpu",
+                       "--save-vtk", {str(tmp_path / "m.vtk")!r},
+                       "--save-html", {str(tmp_path / "m.html")!r}])
+        assert rc == 0
+        try:
+            cli.main([{str(inp)!r}, "--platform", "cpu",
+                      "--save-png", {str(tmp_path / "m.png")!r}])
+        except ImportError as exc:
+            print("png:", exc)
+        """
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", script], cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "wrote" in out.stdout and "png: import of matplotlib" in out.stdout
+    assert (tmp_path / "m.vtk").exists() and (tmp_path / "m.html").exists()
+    assert not (tmp_path / "m.png").exists()
 
 
 def test_package_sources_never_import_jax():

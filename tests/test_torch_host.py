@@ -138,7 +138,6 @@ def test_solver_config_fields_and_defaults():
         {"sharding": "slab"},
         {"fused_newton": True},
         {"device_loop": True},
-        {"stabilize_factor": 2e-4},
         {"dynamic_rescue": True},
     ],
 )

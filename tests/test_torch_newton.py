@@ -392,6 +392,78 @@ def test_multigrid_in_newton_path():
 
 
 # --------------------------------------------------------------------------- #
+# static stabilization (config.stabilize_factor)
+# --------------------------------------------------------------------------- #
+def _same_stabilization(ts, tr, js, jr):
+    """The dissipated energy and the last increment's coefficient C/dt
+    (the calibrated C over equal times) within TOL, the lumped diagonal
+    within 1e-12."""
+    assert tr.stabilization_energy > 0.0
+    assert abs(tr.stabilization_energy - jr.stabilization_energy) <= (
+        TOL * jr.stabilization_energy)
+    j_scale = float(js._arrs["stab_scale"])
+    assert j_scale > 0.0
+    assert abs(float(ts._stab_scale) - j_scale) <= TOL * j_scale
+    assert _rel(ts._stab_diag, js._arrs["stab_diag"]) < 1e-12
+
+
+_STAB_CASES = {
+    # the box with the default tangent (secant + Kg through P2's path), the
+    # box's secant alone (P3's path), ELL, ELL with the consistent tangent,
+    # and the general DIA layout
+    "box": (_cantilever, {}),
+    "box-secant": (_cantilever, {"geometric_stiffness": False}),
+    "ell": (_cantilever, {"sparse_format": "ell"}),
+    "ell-consistent": (_cantilever, {"sparse_format": "ell",
+                                     "tangent": "consistent",
+                                     "newton_boost_max": 0}),
+    "general-dia": (_bent_hexes, {}),
+}
+
+
+@pytest.mark.parametrize("case", list(_STAB_CASES))
+def test_stabilization_matches_jax(case):
+    """stabilize_factor > 0: the viscous force in the residual, its diagonal
+    in every tangent route, C calibrated on the first increment and the
+    energy dissipated in the later ones, as in femcy_tpu."""
+    model, extra = _STAB_CASES[case]
+    jm, inp = model(ini_inc=0.25) if model is _cantilever else model()
+    cfg = dict(linear_solver="direct", stabilize_factor=2e-4, **extra)
+    js, jr, ts, tr = _solve_both(jm, F.LinearIsotropic(1000.0, 0.3), inp, cfg)
+    assert (ts.dia is None) == (case.startswith("ell"))
+    assert (ts._structured_plan is not None) == case.startswith("box")
+    assert tr.success and tr.n_increments >= 3
+    _same_history(tr, jr)
+    _same_state(ts, js)
+    _same_stabilization(ts, tr, js, jr)
+
+
+def test_stabilization_switched_off_restores_the_plain_analysis():
+    """A second solve after ``config`` is replaced by one with
+    stabilize_factor=0 drops the stabilization state (femcy_tpu's restore
+    branch) and repeats a plain analysis exactly."""
+    jm, inp = _cantilever(ini_inc=0.25)
+    mat = F.LinearIsotropic(1000.0, 0.3)
+    cfg = dict(linear_solver="direct", sparse_format="ell")
+    js, jr, ts, tr = _solve_both(jm, mat, inp, dict(cfg, stabilize_factor=2e-4))
+    _same_stabilization(ts, tr, js, jr)
+    js.config = dataclasses.replace(js.config, stabilize_factor=0.0)
+    ts.config = dataclasses.replace(ts.config, stabilize_factor=0.0)
+    jr2, tr2 = js.solve(inp), ts.solve(convert.inp_from(inp))
+    assert "stab_diag" not in js._arrs
+    assert ts._stab_diag is ts._stab_ref is ts._stab_scale is None
+    assert tr2.stabilization_energy == jr2.stabilization_energy == 0.0
+    _same_history(tr2, jr2)
+    _same_state(ts, js)
+    plain = T.FEMSystem(ts.mesh, ts.material, True, T.SolverConfig(**cfg),
+                        device="cpu")
+    rp = plain.solve(convert.inp_from(inp))
+    assert [dataclasses.astuple(r) for r in rp.increments] == [
+        dataclasses.astuple(r) for r in tr2.increments]
+    assert torch.equal(plain.dof, ts.dof)
+
+
+# --------------------------------------------------------------------------- #
 # units against the JAX twins
 # --------------------------------------------------------------------------- #
 def _state(jm, seed, scale=0.05):
