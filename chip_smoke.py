@@ -106,8 +106,7 @@ Phases (any failure raises, and the script exits non-zero):
    and the system's SpMV kernel against the plain SpMV on the eliminated
    operator (1e-12, x seeded with numpy).
    Prints the init wall with its phases, the first and warm solve walls
-   and the Timer sections.  This is not the twin of the JAX bench cell
-   c3d4_1053k_unstructured_amg, which needs the AMG (not ported yet).
+   and the Timer sections.
 9. general-DIA slice: the same on box_hexes(48, 48, 48) (110,592 C3D8
    elements, 352,947 dofs, K = 99 offsets): M1 into the DIA slots, P1 in
    the CG; operator vs the host operator and vs M1's plain version, P1 vs
@@ -116,6 +115,32 @@ Phases (any failure raises, and the script exits non-zero):
    Abaqus text (node sets, *Boundary, a *Surface with a *Dsload
    pressure, *Elastic, *Static), read with read_inp, solved on the card
    with the CG at cg_eps=1e-10 (M1 and M2) against the host direct solve.
+10b. AMG slice (the algebraic-multigrid main path, the twin of the JAX
+   bench cells c3d4_1053k_unstructured_setup and _amg): the ELL slice's
+   mesh and boundary model through FEMSystem with
+   SolverConfig(preconditioner="amg", linear_solver="cg") in float64,
+   every launch counter zeroed just before the solve and read just after.
+   Checks: success, M1 once, M3 (block-ELL SpMV) launched (iterations +
+   1) x 7 x (levels - 1) + iterations times (each non-coarsest level of a
+   V-cycle: two smoothings of two applies, a residual, R and P; one
+   V-cycle before the PCG loop and one per iteration, one fine apply per
+   iteration), M2 and P1-P3 never, ||A x - b||_inf <= cg_eps * ||b||_inf
+   with the plain ELL SpMV, the prescribed ux within the residual of its
+   rows, finite output of the expected shapes, a warm solve on the kept
+   hierarchy with the same iterations.  Prints the hierarchy beside
+   femcy_tpu's recorded one, the setup split (``_init_seconds``,
+   ``_amg_host_seconds``, ``setup_seconds``), the first and warm walls,
+   one V-cycle and one AMG-PCG under torch.profiler (wall, device busy,
+   device events per iteration), the peak memory, and the largest
+   difference from the ELL slice's Jacobi x (not gated).  Then M3 in
+   float32 and float64 vectors on every operand of that hierarchy (the
+   fine level from the eliminated ELL values, each level's bf16 A, P and
+   R) and of rect_tris(60, 40)'s (2 x 2, 2 x 3, 3 x 2 and 3 x 3 blocks)
+   against the plain ``bell_spmv`` run on the CPU on the same tensors
+   (1e-12 / 1e-5 relative to max|y|), bit-identical on a rerun; at the
+   fine level timed in turns with its plain version and cuSPARSE's CSR
+   matvec, M2 on the same operator timed before and after, with its
+   bound.
 11. Newton, box (a main path): FEMSystem(box_tets(56, 56, 56),
    LinearIsotropic(1000, 0.3), geometric_nonlinear=True,
    SolverConfig(preconditioner="multigrid", linear_solver="cg")) in
@@ -137,7 +162,10 @@ Phases (any failure raises, and the script exits non-zero):
    and with ``newton_jacobian_reuse="increment"`` (both below the
    direct-solve limit; M4 and M1), and box_tets(16, 16, 16) with the
    reference's secant tangent (``geometric_stiffness=False``: P3 from the
-   current coordinates, and M5), the same checks without the warm solve.
+   current coordinates, and M5), the same checks without the warm solve;
+   and unstructured_box_tets(12) with preconditioner="amg" and the CG
+   (M4 and M1 once per evaluation, M3 in every solve, one hierarchy
+   build for the whole solve).
 14. CLI, ELL (the user's entry point): unstructured_box_tets(56) written
    as a C3D4 .inp (``inp_text``, with numpy: z=0 clamped, ux=0.01 on
    z=1, a pressure of 2 on the x=max face) and run in this process by
@@ -154,6 +182,10 @@ Phases (any failure raises, and the script exits non-zero):
    of the CLI's stages (read: the routing scan, ``read_inp_multi`` and
    ``read_inp``; setup; solve; post: stress, extrapolation and the host
    copies; vtk; html), each beside the card's name and power limit.
+14b. CLI, AMG: the .inp model of phase 10 through ``cli.main([path,
+   "--preconditioner", "amg", "--solver", "cg"])``: rc 0, the printed
+   lines equal to a FEMSystem solve's with the same config, M1 once and
+   M3 launched, no other kernel.
 15. CLI, general DIA: the same for box_hexes(48, 48, 48) as a C3D8 .inp
    (M1 once, P1 once per CG iteration, cell type 12), the CLI run inside
    ``utils.timing.device_trace``: the trace file must exist and name
@@ -178,8 +210,8 @@ Phases (any failure raises, and the script exits non-zero):
    operations over the f64 peak, from this run's shapes) and the launches
    of the path that runs it (P1 and P3 from the multigrid slice, P2 and
    M5 from the box Newton path, M1 and M2 from the ELL slice, M4 from the
-   ELL Newton path); then the result line ``{"ok": true, "device":
-   {...}}`` last.
+   ELL Newton path, M3 from the AMG slice); then the result line
+   ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
@@ -215,7 +247,8 @@ INP_NX = 12
 #: on the x=max face, hence their other counts)
 EXPECTED_CG_ITERS = {"multigrid box": 6, "jacobi box": 257, "ELL slice": 312,
                      "general-DIA slice": 163, ".inp model, CG": 260,
-                     "CLI, ELL": 306, "CLI, general DIA": 166}
+                     "CLI, ELL": 306, "CLI, general DIA": 166,
+                     "AMG slice": 8, "CLI, AMG": 5}
 #: the Newton cases' time schedule: the top face turned by time * pi about
 #: the box axis, 3.6 degrees in five increments.  Each increment's first
 #: Newton iterate puts its whole turn into the top element layer, 1/56
@@ -232,7 +265,8 @@ EXPECTED_NEWTON = {"box Newton": [(2, True)] * 5, "ELL Newton": [(2, True)] * 5,
                    "Jacobian reuse": [(1, True)] * 5,
                    "box secant": [(1, True)] * 5,
                    "ELL Newton, stabilized": [(2, True)] * 5,
-                   "box secant, stabilized": [(1, True)] * 5}
+                   "box secant, stabilized": [(1, True)] * 5,
+                   "Newton, AMG": [(1, True)] * 5}
 #: the dissipated-energy fraction of the stabilized cases (the CLI's
 #: ``--stabilize`` and ``SolverConfig.stabilize_factor``)
 STABILIZE = 2e-4
@@ -375,6 +409,7 @@ def accumulate_targets(plan, device):
 def launch_counters():
     """Every kernel wrapper by its row name in the kernel table."""
     from femcy_tpu_torch.kernels import (
+        bell_spmv,
         dia_spmv,
         ell_scatter,
         ell_spmv,
@@ -390,7 +425,8 @@ def launch_counters():
             "ell_scatter": ell_scatter.scatter,
             "ell_spmv": ell_spmv.spmv,
             "internal_force": internal_force.scatter_force,
-            "structured_force": structured_force.force_scatter}
+            "structured_force": structured_force.force_scatter,
+            "bell_spmv": bell_spmv.spmv}
 
 
 def zero_launches() -> None:
@@ -1369,10 +1405,10 @@ def solution_checks(torch, system, mesh, plain_spmv):
     return res, bmax, ux_err
 
 
-def general_slice_run(torch, card, mesh, layout: str, host_K):
+def general_slice_run(torch, card, mesh, layout: str, host_K, keep=None):
     """Phases 8 and 9: ``mesh`` through FEMSystem with the default config
     on the card, which must pick ``layout``.  Returns the launch counts and
-    CG iterations."""
+    CG iterations; with a ``keep`` dict, its "dof" is the solution."""
     from femcy_tpu_torch import FEMSystem, LinearIsotropic
     from femcy_tpu_torch.kernels import ell_scatter as k_scat
     from femcy_tpu_torch.solvers.cg import ell_spmv
@@ -1495,6 +1531,8 @@ def general_slice_run(torch, card, mesh, layout: str, host_K):
           f"{system._last_cg_iters} iterations in "
           f"{warm['linear_solve']['steady_min']:.4f} s, solve {warm_s:.4f} s; "
           f"Timer {warm}", flush=True)
+    if keep is not None:
+        keep["dof"] = system.dof.cpu().numpy()
     del system
     torch.cuda.empty_cache()
     return launches, iters
@@ -1638,6 +1676,19 @@ def newton_run(torch, card, label: str, mesh, config: dict, force: str,
     setup_s = time.perf_counter() - t
     check(system.dtype == torch.float64, "default dtype is not float64")
 
+    builds = []
+    if config.get("preconditioner") == "amg":
+        # count hierarchy builds: one for the whole solve while the mask
+        # holds
+        ensure = system._ensure_amg
+
+        def counted(fixed, values=None):
+            before = system._amg
+            ensure(fixed, values)
+            builds.append(system._amg is not before)
+
+        system._ensure_amg = counted
+
     def one_solve():
         n_rec, n_cg = len(system.timer.records), len(system._cg_iters_log)
         torch.cuda.synchronize()
@@ -1671,7 +1722,14 @@ def newton_run(torch, card, label: str, mesh, config: dict, force: str,
     check(launches[force] == evals and launches[tangent] == evals,
           f"{label}: {force} launched {launches[force]} and {tangent} "
           f"{launches[tangent]} times for {evals} evaluations")
-    spmv = ("dia_spmv" if system.dia is not None else "ell_spmv") if cg else None
+    if not cg:
+        spmv = None
+    elif builds:
+        spmv = "bell_spmv"
+        check(sum(builds) == 1 and len(builds) == len(cg),
+              f"{label}: {sum(builds)} hierarchy builds for {len(cg)} solves")
+    else:
+        spmv = "dia_spmv" if system.dia is not None else "ell_spmv"
     for name, n in launches.items():
         if name not in (force, tangent, spmv):
             check(n == 0, f"{label}: {name} launched {n} times")
@@ -1945,6 +2003,378 @@ def cli_nonlinear_run(torch, card, label: str, extra):
     return launches, n_inc
 
 
+# --------------------------------------------------------------------------- #
+# the algebraic multigrid (phases 10b, 13 and 14b)
+# --------------------------------------------------------------------------- #
+def cycle_launches(amg) -> int:
+    """M3 launches of one V-cycle: per non-coarsest level two smoothings
+    of ``smooth_steps`` applies, one residual, R and P; at an oversized
+    coarsest level 4 * smooth_steps applies of smoothing."""
+    s = amg.smooth_steps
+    return ((2 * s + 3) * (amg.n_levels - 1)
+            + (4 * s if amg._coarse_smooth_only else 0))
+
+
+def device_profile(torch, fn):
+    """(wall s, device busy ms, device events) of ``fn()`` under
+    torch.profiler, synchronised; busy time sums the CUDA events only."""
+    from femcy_tpu_torch.tools.newton_profile import _device_events
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    busy, _ = _device_events(prof)
+    n_events = sum(ev.device_type == torch.autograd.DeviceType.CUDA
+                   for ev in prof.events())
+    return wall, busy / 1e3, n_events
+
+
+def bell_operands(system, values_bc):
+    """(label, BellOperand) of every M3 operand of the system's AMG: the
+    fine level from the eliminated operator, then each level's A, P, R."""
+    from femcy_tpu_torch.kernels import bell_spmv as k_bell
+
+    ops = [("fine", k_bell.from_ell(system._bell_fine, values_bc))]
+    for li, lv in enumerate(system._amg.levels):
+        for what, op in (("A", lv.A), ("P", lv.P), ("R", lv.R)):
+            if op is not None:
+                ops.append((f"{what}{li}", op))
+    return ops
+
+
+def bell_checks(torch, label: str, system, values_bc, timed=False) -> list:
+    """M3 on every operand of ``system``'s hierarchy, with float32 and
+    float64 vectors (the fine level in the vector's type, the hierarchy in
+    bf16), against the plain ``bell_spmv`` run on the CPU on the same
+    tensors (the fine level through ``bell_from_ell``), and bit-identical
+    on a rerun; with ``timed``, each operand's float64 kernel time.
+    Returns the shapes checked."""
+    from femcy_tpu_torch.kernels import bell_spmv as k_bell
+    from femcy_tpu_torch.solvers.bell import bell_from_ell, bell_spmv
+
+    shapes = []
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[1]
+        tol = TOL[name]
+        for what, op in bell_operands(system, values_bc.to(dtype)):
+            rng = np.random.default_rng(len(shapes))
+            x = torch.as_tensor(rng.standard_normal(op.n_cols * op.bc),
+                                dtype=dtype, device=DEVICE)
+            y = k_bell.spmv(op, x)
+            y2 = k_bell.spmv(op, x)
+            torch.cuda.synchronize()
+            check(torch.equal(y, y2), f"M3 {label} {what} {name}: rerun "
+                  "not bit-identical")
+            if what == "fine":
+                bv = bell_from_ell(values_bc.to(dtype).cpu(), system._bell_plan)
+            else:
+                bv = op.bvalues.cpu()
+            y_p = bell_spmv(bv, op.ncol.cpu(), x.cpu())
+            rel = float((y.cpu() - y_p).abs().max() / y_p.abs().max())
+            check(rel <= tol, f"M3 {label} {what} {name}: {rel:.3e} vs plain")
+            shape = (op.n_blocks, op.values_t.shape[0], op.br, op.bc,
+                     str(op.values_t.dtype).split(".")[1], name)
+            if timed and dtype == torch.float64:
+                ms = cuda_ms(lambda: k_bell.spmv(op, x), 20)
+                shape += (f"{ms:.4f} ms",)
+            shapes.append((what, shape, rel))
+    print(f"M3 kernel checks, {label}: " + "; ".join(
+        f"{what} {shape} rel {rel:.2e}" for what, shape, rel in shapes)
+        + " (tol 1e-5 in float32, 1e-12 in float64, bit-identical reruns)",
+        flush=True)
+    return shapes
+
+
+def bell_fine_timing(torch, card, system, values_bc):
+    """M3 at the fine level of the AMG slice, float64, timed in turns with
+    its plain version (on the bell_from_ell blocks) and cuSPARSE's CSR
+    matvec of the valid slots, M2 on the same eliminated operator timed
+    before and after them.  Returns the kernel table's row."""
+    from femcy_tpu_torch.kernels import bell_spmv as k_bell
+    from femcy_tpu_torch.kernels import ell_spmv as k_ell
+    from femcy_tpu_torch.solvers.bell import bell_from_ell, bell_spmv
+
+    plan = system._bell_plan
+    op = k_bell.from_ell(system._bell_fine, values_bc)
+    bv = bell_from_ell(values_bc, plan)
+    ncol = op.ncol
+    x = torch.as_tensor(np.random.default_rng(9).standard_normal(op.n_cols * op.bc),
+                        dtype=values_bc.dtype, device=DEVICE)
+    y_k = k_bell.spmv(op, x)
+    y_p = bell_spmv(bv, ncol, x)
+    abs3 = float((y_k - y_p).abs().max())
+    n, W = values_bc.shape
+    splan = k_ell.spmv_plan(system.pattern, DEVICE)
+    vt = k_ell.prep_values(splan, values_bc)
+    colidx = system._arrs["colidx"]
+    keep = torch.arange(W, device=DEVICE)[None] < splan.row_counts[:, None]
+    lib = csr_matvec(keep, colidx, values_bc)
+    del keep
+    check(float((lib(x) - y_p).abs().max()) <= TOL["float64"] * float(
+        y_p.abs().max()), "M3's CSR yardstick disagrees")
+    check(float((k_ell.spmv(splan, vt, x) - y_p).abs().max())
+          <= TOL["float64"] * float(y_p.abs().max()), "M2 vs M3 disagree")
+    m2a = cuda_ms(lambda: k_ell.spmv(splan, vt, x), 50)
+    ms, pms, lms = in_turns(lambda: bell_spmv(bv, ncol, x),
+                            lambda: k_bell.spmv(op, x), 5, 50, lambda: lib(x))
+    m2b = cuda_ms(lambda: k_ell.spmv(splan, vt, x), 50)
+    blocks = int(plan.valid.sum())
+    isz = values_bc.element_size()
+    b3 = bound(blocks * (op.br * op.bc * isz + 4) + op.n_blocks * 4
+               + op.n_cols * op.bc * isz + n * isz,
+               2 * blocks * op.br * op.bc, "float64")
+    print(f"timing M3 at the AMG slice's fine level (float64, {op.n_blocks} "
+          f"block rows, K = {op.values_t.shape[0]}, {blocks} valid 3 x 3 "
+          f"blocks) on {card}: bell_spmv kernel {ms:.4f} ms, plain (einsum "
+          f"on the blocks) {pms:.4f} ms, CSR matvec (cuSPARSE) {lms:.4f} ms, "
+          f"M2 ell_spmv on the same operator {m2a:.4f} / {m2b:.4f} ms, bound "
+          f"{b3[0]:.4f} ms ({b3[1]}); M3 kernel vs plain abs err {abs3:.3e}",
+          flush=True)
+    return row(abs3, ms, pms, lms, b3)
+
+
+def amg_slice_run(torch, card, mesh, jacobi_dof, results):
+    """Phase 10b: FEMSystem(unstructured_box_tets(56), LinearIsotropic(1000,
+    0.3), SolverConfig(preconditioner="amg", linear_solver="cg")) in
+    float64 on the ELL slice's boundary model, every launch counter zeroed
+    just before the solve and read just after.  Checks: success, M1 once,
+    M3 as the V-cycle predicts, M2 and P1-P3 never, ||A x - b||_inf <=
+    cg_eps * ||b||_inf with the plain ELL SpMV, the prescribed ux within
+    the residual of its rows, finite output of the expected shapes.
+    Prints the hierarchy beside femcy_tpu's recorded one, the setup split,
+    the first and warm solve walls, one V-cycle and one PCG under the
+    profiler, and the peak memory; then checks M3 on every operand of the
+    hierarchy and times it at the fine level.  Returns the
+    launch counts and CG iterations."""
+    from femcy_tpu_torch import FEMSystem, LinearIsotropic, SolverConfig
+    from femcy_tpu_torch.kernels import bell_spmv as k_bell
+    from femcy_tpu_torch.solvers.cg import ell_spmv
+
+    t_phase = time.perf_counter()
+    inp = boundary_model(mesh, 0.01)
+    t = time.perf_counter()
+    system = FEMSystem(mesh, LinearIsotropic(1000.0, 0.3), config=SolverConfig(
+        preconditioner="amg", linear_solver="cg"), device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    check(system.dtype == torch.float64, "default dtype is not float64")
+    check(system.dia is None and system.pattern is not None,
+          "the AMG slice is not on the ELL layout")
+
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    report = system.solve(inp)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    strain, stress, mises = system.compute_strain_stress()
+    energy = system.elastic_energy()
+    nodal = system.extrapolate(mises)
+    amg = system._amg
+    iters = system._last_cg_iters
+    timing = system.timer.summary()
+    sizes = [lv.n_dof for lv in amg.levels]
+    print(f"AMG slice: {mesh.n_elements} C3D4 elements, {mesh.n_dof} dofs, ELL "
+          f"width {system.pattern.width}; hierarchy {sizes} dofs, complexity "
+          f"{amg.complexity:.4f}, coarsest {'smoothed' if amg._coarse_smooth_only else 'dense inverse'} "
+          "(femcy_tpu's recorded hierarchy at this size: 555579 / 42438 / "
+          "2628 / 228, complexity 1.92, 18 AMG-PCG iterations)", flush=True)
+    print(f"AMG slice setup on {card}: FEMSystem init {init_s:.3f} s "
+          f"({system._init_seconds}); hierarchy host phases "
+          f"{system._amg_host_seconds}; AlgebraicMultigrid setup "
+          f"{amg.setup_seconds}", flush=True)
+    print(f"AMG slice on {card}: first solve {first_s:.4f} s: assembly+bc "
+          f"{timing['assemble+bc']['first']:.4f} s, hierarchy build + AMG-PCG "
+          f"{iters} iterations {timing['linear_solve']['first']:.4f} s; peak "
+          f"memory {peak / 1e9:.3f} GB; launches {launches}", flush=True)
+
+    E = mesh.n_elements
+    check(report.success, "AMG slice: solve reported failure")
+    check(iters > 0, "AMG slice: the CG did not run")
+    check(launches["ell_scatter"] == 1, f"AMG slice: M1 {launches}")
+    expect = (iters + 1) * cycle_launches(amg) + iters
+    check(launches["bell_spmv"] == expect,
+          f"AMG slice: M3 launched {launches['bell_spmv']} times, the "
+          f"{amg.n_levels}-level cycle predicts {expect} for {iters} "
+          "iterations")
+    for name in ("ell_spmv", "dia_spmv", "structured_accumulate",
+                 "structured_fused", "internal_force", "structured_force"):
+        check(launches[name] == 0, f"AMG slice: {name} launched")
+    check(tuple(system.dof.shape) == (mesh.n_dof,), "dof shape")
+    for what, t_, shape in (("strain", strain, (E, 1, 3, 3)),
+                            ("stress", stress, (E, 1, 3, 3)),
+                            ("mises", mises, (E, 1)), ("nodal", nodal, (E, 4)),
+                            ("dof", system.dof, (mesh.n_dof,))):
+        check(tuple(t_.shape) == shape, f"AMG slice: {what} shape")
+        check(bool(torch.isfinite(t_).all()), f"AMG slice: {what} not finite")
+    check(np.isfinite(energy) and energy > 0.0, f"energy {energy}")
+    del strain, stress, nodal
+    colidx = system._arrs["colidx"]
+    res, bmax, ux_err = solution_checks(
+        torch, system, mesh, lambda v, x: ell_spmv(v, colidx, x))
+    dof = system.dof.cpu().numpy()
+    jac = float(np.abs(dof - jacobi_dof).max() / np.abs(jacobi_dof).max())
+    print(f"AMG slice checks: ||Ax-b||_inf/||b||_inf {res / bmax:.3e} (cg_eps "
+          f"{system.config.cg_eps}), prescribed ux off by {ux_err:.3e}, max "
+          f"mises {float(mises.max()):.6g}, energy {energy:.6g}; largest "
+          f"difference from the ELL slice's Jacobi x {jac:.3e} of max|x| "
+          "(both stop at cg_eps 1e-3; not gated)", flush=True)
+    del mises
+
+    t = time.perf_counter()
+    system.solve(inp)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t
+    warm = system.timer.summary()
+    check(system._amg is amg, "AMG slice: the warm solve rebuilt the hierarchy")
+    check(system._last_cg_iters == iters, "AMG slice: warm solve iterations")
+    print(f"AMG slice warm solve on {card}: {warm_s:.4f} s: assembly+bc "
+          f"{warm['assemble+bc']['steady_min']:.4f} s, AMG-PCG {iters} "
+          f"iterations {warm['linear_solve']['steady_min']:.4f} s (hierarchy "
+          "kept)", flush=True)
+
+    # one V-cycle and one PCG under the profiler
+    values_bc, rhs_bc, _ = system._linear_system(
+        torch.zeros_like(system.dof), *system._last_dirichlet)
+    fine = k_bell.from_ell(system._bell_fine, values_bc)
+
+    def apply0(v):
+        return k_bell.spmv(fine, v)
+
+    r = torch.as_tensor(np.random.default_rng(4).standard_normal(mesh.n_dof),
+                        dtype=torch.float64, device=DEVICE)
+    amg.precondition(r, apply0)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(5):
+        amg.precondition(r, apply0)
+    torch.cuda.synchronize()
+    cycle_s = (time.perf_counter() - t) / 5
+    wall_c, busy_c, ev_c = device_profile(
+        torch, lambda: amg.precondition(r, apply0))
+    out = {}
+    wall_p, busy_p, ev_p = device_profile(torch, lambda: out.setdefault(
+        "pcg", amg.pcg_solve(rhs_bc, apply0, eps=system.config.cg_eps,
+                             max_iters=mesh.n_dof)))
+    check(out["pcg"][1] == iters, "AMG slice: profiled PCG iterations")
+    print(f"AMG slice profile on {card}: one V-cycle {cycle_s * 1e3:.3f} ms of "
+          f"wall ({wall_c * 1e3:.3f} ms under the profiler, device busy "
+          f"{busy_c:.3f} ms, {busy_c / (wall_c * 1e3):.1%}, {ev_c} device "
+          f"events, {cycle_launches(amg)} of them M3); one AMG-PCG of {iters} "
+          f"iterations {wall_p * 1e3:.3f} ms under the profiler, device busy "
+          f"{busy_p:.3f} ms ({busy_p / (wall_p * 1e3):.1%}), {ev_p} device "
+          f"events, {ev_p / iters:.1f} per iteration", flush=True)
+    del out, r
+
+    t = time.perf_counter()
+    bell_checks(torch, "AMG slice hierarchy", system, values_bc, timed=True)
+    results["float64"]["bell_spmv"] = bell_fine_timing(
+        torch, card, system, values_bc)
+    print(f"AMG slice: M3 checks and timing {time.perf_counter() - t:.1f} s; "
+          f"phase wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+    del system, values_bc, fine, amg
+    torch.cuda.empty_cache()
+    return launches, iters
+
+
+def amg_2d_checks(torch):
+    """Phase 10b, 2-D: M3's 2-D blocks (2 x 2 fine, 2 x 3 P, 3 x 2 R, 3 x 3
+    coarse) on the hierarchy of rect_tris(60, 40), x=0 clamped, built on
+    the card through FEMSystem._ensure_amg."""
+    from femcy_tpu_torch import FEMSystem, LinearIsotropicPlaneStress, SolverConfig
+    from femcy_tpu_torch.meshgen import rect_tris
+
+    t = time.perf_counter()
+    mesh = rect_tris(60, 40, 1.5, 1.0)
+    fixed = np.zeros(mesh.n_dof, bool)
+    left = np.nonzero(mesh.nodes[:, 0] < 1e-9)[0]
+    fixed[left * 2] = fixed[left * 2 + 1] = True
+    system = FEMSystem(mesh, LinearIsotropicPlaneStress(1000.0, 0.3),
+                       config=SolverConfig(preconditioner="amg",
+                                           linear_solver="cg"), device=DEVICE)
+    fixed_d = torch.as_tensor(fixed, device=DEVICE)
+    zeros = torch.zeros(mesh.n_dof, dtype=system.dtype, device=DEVICE)
+    values_bc, _, _ = system._linear_system(zeros, fixed_d, zeros)
+    system._ensure_amg(fixed_d, values=values_bc)
+    check(system._amg.n_levels >= 2, "2-D hierarchy has one level")
+    shapes = bell_checks(torch, f"rect_tris(60, 40), {mesh.n_dof} dofs",
+                         system, values_bc)
+    blocks = {(s[2], s[3]) for _, s, _ in shapes}
+    check({(2, 2), (2, 3), (3, 2)} <= blocks, f"2-D block shapes {blocks}")
+    print(f"M3 2-D checks: phase wall {time.perf_counter() - t:.1f} s",
+          flush=True)
+
+
+def cli_amg_run(torch, card):
+    """Phase 14b: the .inp model of phase 10 through the CLI with
+    ``--preconditioner amg --solver cg``.  Checks: rc 0; the printed model
+    line and observables equal to the strings formatted from a FEMSystem
+    built here from ``read_inp`` of the same file with the same config;
+    M1 once, M3 launched, no M2 or P1-P3.  Returns (launches, CG
+    iterations)."""
+    import tempfile
+
+    from femcy_tpu_torch import (
+        FEMesh,
+        FEMSystem,
+        SolverConfig,
+        material_from_inp,
+        read_inp,
+    )
+    from femcy_tpu_torch.meshgen import unstructured_box_tets
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/amg.inp"
+        with open(path, "w") as f:
+            f.write(inp_text(unstructured_box_tets(INP_NX)))
+        rc, out, launches, walls, cli_s = run_cli(
+            [path, "--preconditioner", "amg", "--solver", "cg"])
+        check(rc == 0, f"CLI, AMG: exit code {rc}")
+        print(f"CLI, AMG: stdout of the CLI:\n{out}", end="", flush=True)
+        inp = read_inp(path)
+    mat = material_from_inp(inp.material_type, inp.material_params,
+                            inp.element_type)
+    mesh = FEMesh(inp.nodes, inp.elements, inp.element)
+    system = FEMSystem(mesh, mat, inp.geometric_nonlinear, SolverConfig(
+        preconditioner="amg", linear_solver="cg"), device=DEVICE)
+    check(system.solve(inp).success, "CLI, AMG: FEMSystem solve")
+    iters = system._last_cg_iters
+    _, _, mises = system.compute_strain_stress()
+    want = [
+        f"model: {mesh.n_elements} C3D4 elements, {mesh.n_nodes} nodes, "
+        f"{mesh.n_dof} dofs, geometric_nonlinear=False",
+        f"total elastic energy = {system.elastic_energy():.6g}",
+        f"max Mises stress at integration points = {float(mises.max()):.6g}",
+        "max nodal (extrapolated) Mises stress = "
+        f"{float(system.extrapolate(mises).max()):.6g}",
+        f"max |dof| (displacement) = {float(system.dof.abs().max()):.6g}",
+    ]
+    got = [ln for ln in out.splitlines()
+           if ln.startswith("model:") or " = " in ln]
+    check(got == want, f"CLI, AMG: CLI printed {got}, FEMSystem gives {want}")
+    check(launches["ell_scatter"] == 1 and launches["bell_spmv"] > 0,
+          f"CLI, AMG: launches {launches}")
+    for name, n in launches.items():
+        if name not in ("ell_scatter", "bell_spmv"):
+            check(n == 0, f"CLI, AMG: {name} launched {n} times")
+    stages = ", ".join(f"{k} {v:.3f} s" for k, v in walls.items())
+    print(f"CLI, AMG on {card}: rc 0, observables equal to FEMSystem's, "
+          f"AMG-PCG {iters} iterations, launches M1 {launches['ell_scatter']} "
+          f"M3 {launches['bell_spmv']}; CLI {cli_s:.3f} s ({stages}); phase "
+          f"wall {time.perf_counter() - t0:.1f} s", flush=True)
+    del system
+    torch.cuda.empty_cache()
+    return launches, iters
+
+
 def main() -> int:
     card = card_line()
     print(card, flush=True)
@@ -1985,8 +2415,10 @@ def main() -> int:
 
     host_K = general_kernel_checks(torch, card, results)
     m1_dia = scatter_route_checks(torch, card)
+    jacobi = {}
     ell, iters["ELL slice"] = general_slice_run(
-        torch, card, unstructured_box_tets(UNSTRUCT[-1]), "ell", host_K)
+        torch, card, unstructured_box_tets(UNSTRUCT[-1]), "ell", host_K,
+        keep=jacobi)
     by_path["ELL slice"] = ell
     del host_K
     launches["ell_scatter"] = ell["ell_scatter"]
@@ -2001,6 +2433,12 @@ def main() -> int:
         general_slice_run(torch, card, hexes, "dia", hex_K))
     del hex_K
     by_path[".inp model, CG"], iters[".inp model, CG"] = inp_run(torch)
+    by_path["AMG slice"], iters["AMG slice"] = amg_slice_run(
+        torch, card, unstructured_box_tets(UNSTRUCT[-1]), jacobi["dof"],
+        results)
+    launches["bell_spmv"] = by_path["AMG slice"]["bell_spmv"]
+    del jacobi
+    amg_2d_checks(torch)
 
     histories = {}
     by_path["box Newton"], histories["box Newton"] = newton_run(
@@ -2019,6 +2457,13 @@ def main() -> int:
         torch, card, "Jacobian reuse", small,
         dict(newton_jacobian_reuse="increment"), "internal_force",
         "ell_scatter", warm=False)
+    t = time.perf_counter()
+    by_path["Newton, AMG"], histories["Newton, AMG"] = newton_run(
+        torch, card, "Newton, AMG", small,
+        dict(preconditioner="amg", linear_solver="cg"), "internal_force",
+        "ell_scatter", warm=False)
+    print(f"Newton, AMG: phase wall {time.perf_counter() - t:.1f} s",
+          flush=True)
     by_path["box secant"], histories["box secant"] = newton_run(
         torch, card, "box secant", box_tets(16, 16, 16),
         dict(geometric_stiffness=False, preconditioner="multigrid",
@@ -2028,6 +2473,7 @@ def main() -> int:
     by_path["CLI, ELL"], iters["CLI, ELL"] = cli_linear_run(
         torch, card, "CLI, ELL", unstructured_box_tets(UNSTRUCT[-1]), "C3D4",
         "ell_spmv", trace=False)
+    by_path["CLI, AMG"], iters["CLI, AMG"] = cli_amg_run(torch, card)
     by_path["CLI, general DIA"], iters["CLI, general DIA"] = cli_linear_run(
         torch, card, "CLI, general DIA", box_hexes(*HEX), "C3D8", "dia_spmv",
         trace=True)
@@ -2083,6 +2529,8 @@ def main() -> int:
                            "femcy_tpu/assembly.py:198"),
         "structured_force": ("femcy_tpu_torch/csrc/structured_force.cu",
                              "femcy_tpu/structured.py:476"),
+        "bell_spmv": ("femcy_tpu_torch/csrc/bell_spmv.cu",
+                      "femcy_tpu/solvers/bell.py:147"),
     }
     rows = []
     for name, (src, replaces) in source.items():

@@ -11,13 +11,14 @@ assembles from its node coordinates into the analytic DIA layout and
 solves with a Jacobi, block-Jacobi or geometric-multigrid PCG; any other
 mesh goes through the ELL pattern (native C++ code, native/) and, where its
 offsets are bounded, the general DIA layout, with a Jacobi (or, on DIA,
-block-Jacobi) PCG.  The three TPU kernels of the JAX package are
+block-Jacobi) PCG, or on ELL the smoothed-aggregation algebraic-multigrid
+PCG.  The three TPU kernels of the JAX package are
 rewritten by hand in CUDA for sm_90a (kernels/, csrc/): the DIA SpMV
 (every DIA PCG iteration and multigrid level), the structured accumulate
 (the two-stage box assembly) and the fused coordinates-to-DIA assembly
 (the isotropic box default); so are the general path's deterministic
-stiffness scatter and ELL SpMV, and the Newton path's internal-force
-scatters (general and box).
+stiffness scatter and ELL SpMV, the algebraic multigrid's block-ELL
+SpMV, and the Newton path's internal-force scatters (general and box).
 
 Tensors live on the device given to ``FEMSystem``: the card unless
 ``device="cpu"`` is passed (no auto-detection, and no CPU fallback), in

@@ -1,6 +1,8 @@
 """Non-interactive CLI: ``python -m femcy_tpu_torch.cli model.inp [options]``.
 
-The port of ``femcy_tpu.cli``: the same flags, defaults and choices, and on
+The port of ``femcy_tpu.cli``: the same flags, defaults and choices (and
+``--preconditioner amg``, the algebraic multigrid, which femcy_tpu's CLI
+does not offer), and on
 the single-model route the same printed lines in the same order and format
 (model, solve, elastic energy, max Mises at integration points, max nodal
 Mises, max |dof|, the ``--stress`` pair), so a script that parses one
@@ -90,9 +92,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--preconditioner",
         default="jacobi",
-        choices=["jacobi", "block_jacobi", "multigrid"],
+        choices=["jacobi", "block_jacobi", "multigrid", "amg"],
         help="CG preconditioner (multigrid needs a structured box_tets mesh, "
-        "so it applies to generated meshes, not .inp models)",
+        "so it applies to generated meshes, not .inp models; amg, the "
+        "smoothed-aggregation algebraic multigrid, takes any mesh on the "
+        "ELL layout)",
     )
     p.add_argument(
         "--stress",

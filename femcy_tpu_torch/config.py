@@ -19,8 +19,6 @@ import dataclasses
 _LATER = (
     ("dense_operator_max_dof", lambda v: v != 0,
      "the dense small-model CG (ROADMAP slice G)"),
-    ("preconditioner", lambda v: v == "amg",
-     "algebraic multigrid on the ELL path (ROADMAP slice E)"),
     ("mixed_precision_refine", bool,
      "mixed-precision refinement (ROADMAP slice G)"),
     ("sharding", lambda v: v != "none",

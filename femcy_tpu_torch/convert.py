@@ -18,6 +18,8 @@ from femcy_tpu_torch import materials
 from femcy_tpu_torch.elements import ELEMENT_REGISTRY
 from femcy_tpu_torch.io.inp import DirichletBC, InpModel, NeumannBC
 from femcy_tpu_torch.mesh import FEMesh
+from femcy_tpu_torch.solvers.amg import AlgebraicMultigrid, _device_levels
+from femcy_tpu_torch.solvers.bell import BellPlan
 from femcy_tpu_torch.solvers.dia import DIAPattern
 from femcy_tpu_torch.topology import ELLPattern
 
@@ -101,6 +103,47 @@ def dia_pattern_from(ref_dia) -> DIAPattern:
         diag_idx=int(ref_dia.diag_idx),
         scatter_targets=_array_or_none(ref_dia.scatter_targets),
     )
+
+
+def bell_plan_from(ref_plan) -> BellPlan:
+    """BellPlan with copies of the reference plan's arrays."""
+    return BellPlan(
+        n_nodes=int(ref_plan.n_nodes), dm=int(ref_plan.dm),
+        width=int(ref_plan.width), ncol=np.array(ref_plan.ncol),
+        valid=np.array(ref_plan.valid),
+    )
+
+
+def amg_from(ref_amg, device="cpu", dtype=torch.float64) -> AlgebraicMultigrid:
+    """An AlgebraicMultigrid holding the reference hierarchy's level
+    arrays (its bf16 leaves read through float32, which is exact) and
+    coarsest inverse, without a setup of its own."""
+    def arr(a, dt=np.float32):
+        return None if a is None else np.array(a, dt)
+
+    staged = []
+    for lv in ref_amg.levels:
+        s = {"n_dof": int(lv.n_dof), "bs": int(lv.bs), "lmax": float(lv.lmax),
+             "inv_diag": arr(lv.inv_diag)}
+        for key, v, c in (("A", lv.values, lv.colidx),
+                          ("P", lv.P_values, lv.P_colidx),
+                          ("R", lv.R_values, lv.R_colidx)):
+            if v is not None:
+                s[key] = (arr(v), arr(c, np.int32))
+        staged.append(s)
+    amg = AlgebraicMultigrid.__new__(AlgebraicMultigrid)
+    amg.device = torch.device(device)
+    amg.dtype = dtype
+    amg.smooth_steps = int(ref_amg.smooth_steps)
+    amg.cheby_alpha = float(ref_amg.cheby_alpha)
+    amg._fine_nnz = float(ref_amg._fine_nnz)
+    amg.setup_seconds = dict(ref_amg.setup_seconds)
+    amg._coarse_smooth_only = bool(ref_amg._coarse_smooth_only)
+    amg._single = bool(ref_amg._single)
+    amg.levels = _device_levels(staged, amg.device)
+    amg._coarse_inv = torch.as_tensor(np.asarray(ref_amg._coarse_inv),
+                                      dtype=dtype, device=amg.device)
+    return amg
 
 
 def dof_from(dof, device="cpu", dtype=torch.float64) -> torch.Tensor:

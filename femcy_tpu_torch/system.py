@@ -24,7 +24,13 @@ three layouts:
   kernel (kernels/dia_spmv, P1); on ELL: the Jacobi PCG with the ELL SpMV
   kernel (kernels/ell_spmv, M2) -- scalar Jacobi also under
   ``preconditioner="block_jacobi"``, as in femcy_tpu.  ``spmv="slices"``
-  asks for the plain SpMV on either layout;
+  asks for the plain SpMV on either layout.  ``preconditioner="amg"``
+  forces the ELL layout and runs the smoothed-aggregation AMG-PCG
+  (solvers/amg), whose fine apply and V-cycle go through the block-ELL
+  SpMV kernel (kernels/bell_spmv, M3) whatever ``spmv`` says; its
+  hierarchy is built once per Dirichlet mask from the eliminated operator
+  pulled back through bf16, and kept across increments and Newton
+  iterations;
 - geometric nonlinearity runs the JAX package's Newton-Raphson state
   machine (``run_newton``: boost, relax, stall refresh, NaN cut) on the
   host.  Each evaluation pins the prescribed dofs, computes the current
@@ -63,6 +69,7 @@ import torch
 from femcy_tpu_torch import assembly, bc as bc_mod
 from femcy_tpu_torch.config import SolverConfig
 from femcy_tpu_torch.io.inp import InpModel
+from femcy_tpu_torch.kernels import bell_spmv as k_bell
 from femcy_tpu_torch.kernels import ell_spmv
 from femcy_tpu_torch.kernels.dia_spmv import make_spmv
 from femcy_tpu_torch.kernels.ell_scatter import build_scatter_plan, scatter
@@ -70,6 +77,8 @@ from femcy_tpu_torch.kernels.internal_force import scatter_force
 from femcy_tpu_torch.kernels.structured_force import force_scatter
 from femcy_tpu_torch.materials import Material
 from femcy_tpu_torch.mesh import FEMesh
+from femcy_tpu_torch.solvers.amg import AlgebraicMultigrid
+from femcy_tpu_torch.solvers.bell import build_bell_plan, plan_node_graph
 from femcy_tpu_torch.solvers.cg import pcg_solve
 from femcy_tpu_torch.solvers.dia import (
     DIAPattern,
@@ -247,6 +256,18 @@ class FEMSystem:
     ):
         box = mesh.structure is not None and mesh.structure.get("kind") == "box_tets"
         structured = box and config.sparse_format in ("auto", "dia")
+        amg = config.preconditioner == "amg"
+        if amg and structured:
+            raise ValueError(
+                "preconditioner='amg' runs on the general ELL path; this "
+                "structured mesh already has the geometric 'multigrid'"
+            )
+        if amg and config.sparse_format == "dia":
+            # the block-ELL plan indexes ``values`` as (n_dof, ell_width)
+            raise ValueError(
+                "preconditioner='amg' requires the ELL layout; "
+                "sparse_format='dia' is incompatible"
+            )
         if config.preconditioner == "multigrid":
             if not structured:
                 raise ValueError(
@@ -300,8 +321,8 @@ class FEMSystem:
         else:
             self.pattern = phase("pattern", lambda: build_pattern(mesh))
             # gather-free DIA layout when the offset structure allows it,
-            # chosen exactly as femcy_tpu does
-            if config.sparse_format in ("auto", "dia"):
+            # chosen exactly as femcy_tpu does; never under "amg"
+            if config.sparse_format in ("auto", "dia") and not amg:
                 dia = phase("dia_pattern", lambda: build_dia_pattern(
                     mesh, max_offsets=config.dia_max_offsets, ell=self.pattern))
                 dense_enough = (
@@ -368,8 +389,9 @@ class FEMSystem:
         self._stab_scale: Optional[torch.Tensor] = None
 
         #: (prep, apply) of the SpMV kernel of the layout (P1 on DIA, M2 on
-        #: ELL); None = the plain torch SpMV
-        if config.spmv == "slices":
+        #: ELL); None = the plain torch SpMV (and under "amg", whose route
+        #: applies M3 instead)
+        if config.spmv == "slices" or amg:
             self._spmv = None
         elif self.dia is not None:
             self._spmv = make_spmv(mesh.n_dof, self.dia.offsets, device)
@@ -385,6 +407,16 @@ class FEMSystem:
         self._mg: Optional[StructuredMultigrid] = None
         self._mg_fixed_key: Optional[bytes] = None
         self._mg_fixed_obj = None
+        # algebraic multigrid (lazy like _mg: needs the fixed mask)
+        self._amg: Optional[AlgebraicMultigrid] = None
+        self._amg_fixed_key: Optional[bytes] = None
+        self._amg_fixed_obj = None
+        self._amg_raw_csr = None  # cached no-BC f64 host operator
+        self._bell_plan = None
+        #: M3's fine-level block ids and counts on the device
+        self._bell_fine: Optional[k_bell.FinePlan] = None
+        #: host walls (seconds) of the last hierarchy build, by phase
+        self._amg_host_seconds: dict = {}
 
     # ------------------------------------------------------------------ #
     # device steps
@@ -543,19 +575,23 @@ class FEMSystem:
                 x = direct_solve(pattern, values.cpu().numpy(),
                                  b.cpu().numpy())
             return torch.as_tensor(x, dtype=self.dtype, device=self.device)
+        # <=0 means "up to n_dof", like the Jacobi path
+        max_iters = cfg.cg_max_iters if cfg.cg_max_iters > 0 else self.mesh.n_dof
         if cfg.preconditioner == "multigrid":
             self._ensure_multigrid(fixed)
-            # <=0 means "up to n_dof", like the Jacobi path
-            max_iters = cfg.cg_max_iters if cfg.cg_max_iters > 0 else self.mesh.n_dof
             x, iters, rmax = self._mg.pcg_solve(
                 values, b, eps=cfg.cg_eps, max_iters=max_iters, spmv=self._spmv
             )
-            if cfg.verbose:
-                logger.info("MG-CG: %d iters, ||r||_inf=%.3e", iters, float(rmax))
-            self._warn_cg_cap(iters, rmax, b)
-            self._last_cg_iters = iters
-            self._cg_iters_log.append(iters)
-            return x
+            return self._cg_done("MG-CG", x, iters, rmax, b)
+        if cfg.preconditioner == "amg":
+            self._ensure_amg(fixed, values=values)
+            # the eliminated operator in M3's layout, once per solve
+            fine = k_bell.from_ell(self._bell_fine, values)
+            x, iters, rmax = self._amg.pcg_solve(
+                b, lambda v: k_bell.spmv(fine, v), eps=cfg.cg_eps,
+                max_iters=max_iters,
+            )
+            return self._cg_done("AMG-CG", x, iters, rmax, b)
         if self.dia is not None:
             x, iters, rmax = dia_pcg_solve(
                 values, self.dia.offsets, self.dia.diag_idx, b,
@@ -567,8 +603,13 @@ class FEMSystem:
                 values, self._arrs["colidx"], self._arrs["diag_slot"], b,
                 eps=cfg.cg_eps, max_iters=cfg.cg_max_iters, spmv=self._spmv,
             )
-        if cfg.verbose:
-            logger.info("CG: %d iters, ||r||_inf=%.3e", iters, float(rmax))
+        return self._cg_done("CG", x, iters, rmax, b)
+
+    def _cg_done(self, what: str, x, iters: int, rmax, b):
+        """Log, warn at the iteration cap, and record the iterations of a
+        finished CG solve; returns ``x``."""
+        if self.config.verbose:
+            logger.info("%s: %d iters, ||r||_inf=%.3e", what, iters, float(rmax))
         self._warn_cg_cap(iters, rmax, b)
         self._last_cg_iters = iters
         self._cg_iters_log.append(iters)
@@ -594,6 +635,101 @@ class FEMSystem:
         )
         self._mg_fixed_key = key
         self._mg_fixed_obj = fixed
+
+    def _ensure_amg(self, fixed, values=None):
+        """Build (or rebuild on a changed fixed-dof mask) the smoothed-
+        aggregation hierarchy (solvers/amg.py).
+
+        With ``values`` (the caller's already eliminated device ELL
+        operator) the hierarchy is built from that operator pulled back
+        once through bf16 (one device-to-host copy) into a BSR matrix
+        straight from the blockwise ELL layout.  Without ``values`` it
+        falls back to the f64 host twin (assembly_host), cached.  Either
+        way the hierarchy is kept across increments and Newton iterations
+        while the mask holds; the PCG always iterates on the caller's
+        exact current operator, so on the nonlinear path it is a frozen-
+        hierarchy preconditioner (still SPD, still convergent).
+        ``_amg_host_seconds`` records the host phases of a build; every
+        phase is timed, so "unattributed" is what none of them covers."""
+        # within one increment every Newton solve passes the same mask
+        # object: no device-to-host copy and hash per linear solve
+        if self._amg is not None and fixed is self._amg_fixed_obj:
+            return
+        import scipy.sparse as sp
+
+        from femcy_tpu_torch import assembly_host
+
+        wall0 = _time.perf_counter()
+        host_s = {}
+        fixed_np = fixed.cpu().numpy().astype(bool)
+        key = fixed_np.tobytes()
+        host_s["fixed_key"] = _time.perf_counter() - wall0
+        if self._amg is not None and self._amg_fixed_key == key:
+            self._amg_fixed_obj = fixed
+            return
+        if self._bell_plan is None:
+            t = _time.perf_counter()
+            self._bell_plan = build_bell_plan(self.pattern, self.mesh.dm)
+            self._bell_fine = k_bell.fine_plan(self._bell_plan, self.device)
+            host_s["bell_plan"] = _time.perf_counter() - t
+        plan = self._bell_plan
+        n_dof = self.mesh.n_dof
+        if values is not None:
+            # the exact operator being solved, pulled back in bf16: the
+            # hierarchy is a preconditioner, 8 significand bits suffice
+            t = _time.perf_counter()
+            values_np = values.to(torch.bfloat16).float().cpu().numpy()
+            host_s["pullback"] = _time.perf_counter() - t
+            # direct BSR from the blockwise ELL layout: a reshape and a
+            # boolean select, no CSR intermediate
+            t = _time.perf_counter()
+            dm = plan.dm
+            blocks = values_np.reshape(
+                plan.n_nodes, dm, plan.width, dm
+            ).transpose(0, 2, 1, 3)[plan.valid]
+            indptr = np.zeros(plan.n_nodes + 1, dtype=np.int64)
+            np.cumsum(plan.valid.sum(axis=1), out=indptr[1:])
+            K_bc = sp.bsr_matrix(
+                (blocks, plan.ncol[plan.valid].astype(np.int64), indptr),
+                shape=(n_dof, n_dof),
+            )
+            host_s["bsr"] = _time.perf_counter() - t
+        else:
+            t = _time.perf_counter()
+            if self._amg_raw_csr is None:
+                self._amg_raw_csr = assembly_host.assemble_csr_host(
+                    self.mesh, self.pattern, np.asarray(self.material.C)
+                )
+            zeros = np.zeros(n_dof)
+            K_bc, _ = assembly_host.dirichlet_csr_host(
+                self._amg_raw_csr, zeros, fixed_np, zeros
+            )
+            host_s["host_twin"] = _time.perf_counter() - t
+        t = _time.perf_counter()
+        # the plan already holds the node adjacency: the hierarchy's fine
+        # graph (fully fixed nodes isolated, as in the eliminated operator)
+        fine_graph = plan_node_graph(plan, fixed_np)
+        host_s["fine_graph"] = _time.perf_counter() - t
+        self._amg = None  # release the old hierarchy before the new one
+        self._amg = AlgebraicMultigrid(
+            K_bc, self.mesh.dm, self.mesh.nodes, fixed_np,
+            fine_strength_theta=self.config.amg_fine_theta,
+            dtype=self.dtype, fine_graph=fine_graph, device=self.device,
+        )
+        self._amg_fixed_key = key
+        self._amg_fixed_obj = fixed
+        host_s["unattributed"] = (
+            _time.perf_counter() - wall0
+            - sum(host_s.values())
+            - self._amg.setup_seconds["total"]
+        )
+        self._amg_host_seconds = host_s
+        if self.config.verbose:
+            logger.info("amg: %d levels %s, complexity %.3f; host %s, setup %s",
+                        self._amg.n_levels,
+                        [lv.n_dof for lv in self._amg.levels],
+                        self._amg.complexity, host_s,
+                        self._amg.setup_seconds)
 
     def _warn_cg_cap(self, iters, rmax, b):
         """Warn when the CG exited on its iteration cap unconverged: the

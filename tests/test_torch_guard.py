@@ -30,13 +30,13 @@ def test_imports_and_solves_without_jax():
         import femcy_tpu_torch as T
         from femcy_tpu_torch.io.inp import DirichletBC, InpModel
         from femcy_tpu_torch.kernels import (
-            dia_spmv, ell_scatter, ell_spmv, internal_force,
+            bell_spmv, dia_spmv, ell_scatter, ell_spmv, internal_force,
             structured_accumulate, structured_force, structured_fused)
         from femcy_tpu_torch import cli, user
         from femcy_tpu_torch.io import colormap, export, html
         from femcy_tpu_torch.native import loader
         from femcy_tpu_torch.utils import gif, timing
-        from femcy_tpu_torch.solvers import cg, multigrid
+        from femcy_tpu_torch.solvers import amg, bell, cg, multigrid
         from femcy_tpu_torch import assembly_host, topology
 
         mesh = T.meshgen.box_tets(3, 2, 2)
@@ -71,6 +71,12 @@ def test_imports_and_solves_without_jax():
                         device="cpu")
         assert g.dia is None and loader.get_lib() is not None
         assert g.solve(uinp).success and g._last_cg_iters > 0
+        # and by the algebraic multigrid
+        a = T.FEMSystem(u, T.LinearIsotropic(1000.0, 0.3),
+                        config=T.SolverConfig(linear_solver="cg",
+                                              preconditioner="amg"),
+                        device="cpu")
+        assert a.solve(uinp).success and a._amg is not None
         # the Newton path on both layouts, the top face turned by the
         # rotation hook
         tinp = InpModel(mesh.nodes, mesh.elements, "C3D4", {}, {}, {},

@@ -130,10 +130,8 @@ def test_solver_config_fields_and_defaults():
 @pytest.mark.parametrize(
     "kw",
     [
-        {"sparse_format": "ell", "preconditioner": "amg"},
         {"dense_operator_max_dof": 10},
         {"sharding": "banded"},
-        {"preconditioner": "amg"},
         {"mixed_precision_refine": True},
         {"sharding": "slab"},
         {"fused_newton": True},
@@ -145,6 +143,19 @@ def test_solver_config_later_values_raise(kw):
     jcfg.SolverConfig(**kw)  # valid in the reference
     with pytest.raises(NotImplementedError, match="ROADMAP slice"):
         tcfg.SolverConfig(**kw)
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [
+        {"sparse_format": "ell", "preconditioner": "amg"},
+        {"preconditioner": "amg"},
+    ],
+)
+def test_solver_config_amg_values_accepted(kw):
+    """The algebraic multigrid is ported: these build in both packages."""
+    assert dataclasses.asdict(tcfg.SolverConfig(**kw)) == dataclasses.asdict(
+        jcfg.SolverConfig(**kw))
 
 
 def test_solver_config_rejects_unknown_choice():
