@@ -200,7 +200,47 @@ Phases (any failure raises, and the script exits non-zero):
    those are (pinned histories, M4 and M1, or M5 and P3, once per
    evaluation), with the dissipated energy finite and positive and the
    f64 host residual extended by the last increment's viscous force.
-18. print the launch counts and the CG iterations of every path, each
+18. two-material ELL box (multi-block, slice H): the ELL slice's mesh in
+   two C3D4 blocks by centroid z (z < 0.5 LinearIsotropic(1000, 0.3),
+   the rest (4000, 0.3)) through MultiBlockSystem on the card, the
+   slices' boundary model.  Checks: each block's M1 output bit for bit
+   its plain version run on the CPU and M4 the same on seeded element
+   forces; the union operator (the blocks' M1 outputs summed in block
+   order) within 1e-12 of the f64 host twin (``union_values_host``); a
+   Jacobi CG solve (M1 once per block, M2 once per iteration, no other
+   kernel), then on the same system ``preconditioner="amg"`` (M1 once per
+   block, M3 as the V-cycle predicts), each with ||A x - b||_inf <=
+   cg_eps * ||b||_inf, finite per-block stress, Mises and energy, a warm
+   solve with the same iterations and the pinned CG counts.  Prints the
+   union width, the setup split, the AMG host split, the levels, the
+   first and warm walls and the peak memory.
+19. hex + wedge box: box_hexes(48)'s grid, the cells with i < 24 C3D8
+   LinearIsotropic(1000, 0.3), the others two C3D6 each as box_wedges
+   splits them, NeoHookean(C1=192.3, D1=288.5) (352,947 dofs): the
+   phase 18 checks with a Jacobi CG (M1 for npe 8 and 6), then the
+   ``TWIST`` through ``solve_nonlinear`` (the z=1 face turned by the
+   rotation hook): the pinned history, M4 and M1 once per block per
+   evaluation, M2 once per CG iteration, the f64 host residual (each
+   block's ``internal_force_host``, summed) within 1e-8 of the device's.
+20. CLI, multi-block: phase 19's mesh as a two-*Solid Section .inp (the
+   wedges ``*Hyperelastic, neo hooke``) with a pressure on x = 1 through
+   ``cli.main`` with ``--stress 2 --save-vtk --save-html``: rc 0, the
+   printed lines equal to those formatted from a ``system_from_model
+   (read_inp_multi(...))`` solve, M1 once per block and M2 once per CG
+   iteration, the VTK's mixed cell types (12, 13), the HTML's triangles;
+   then the same box at n = 6 as an nlgeom .inp (uz = -0.1 on z=1 in
+   four increments), plain and with ``--stabilize 2e-4`` (warned about
+   and ignored: the same lines), M4 = M1, two per evaluation.
+21. B31 lattice: a 16 x 16 x 16-bay frame (4,913 nodes, 29,478 dofs,
+   13,872 members, a 6.95 GB dense operator), the base ENCASTRE, seeded
+   loads on the top nodes, through ``solve_beam`` on the card twice:
+   bit-identical, the free-dof residual <= 1e-10 of max|f|, the
+   reactions balancing the loads within 1e-9, no counted kernel (the
+   dense Cholesky is a library call); one- and ten-element cantilevers
+   against the Timoshenko closed form (1e-9); the CLI's B31 route on a
+   2 x 2 x 2-bay .inp, rc 0.  Prints the assembly, Cholesky, solve and
+   recovery walls and the peak memory.
+22. print the launch counts and the CG iterations of every path, each
    beside the count that the deterministic kernels have always given, and
    fail on another count (a kernel changed its rounding), and the Newton
    histories beside the pinned ones; then the kernel table as one JSON
@@ -248,7 +288,9 @@ INP_NX = 12
 EXPECTED_CG_ITERS = {"multigrid box": 6, "jacobi box": 257, "ELL slice": 312,
                      "general-DIA slice": 163, ".inp model, CG": 260,
                      "CLI, ELL": 306, "CLI, general DIA": 166,
-                     "AMG slice": 8, "CLI, AMG": 5}
+                     "AMG slice": 8, "CLI, AMG": 5,
+                     "two-material ELL": 314, "two-material AMG": 7,
+                     "hex+wedge": 188, "CLI, multi-block": 188}
 #: the Newton cases' time schedule: the top face turned by time * pi about
 #: the box axis, 3.6 degrees in five increments.  Each increment's first
 #: Newton iterate puts its whole turn into the top element layer, 1/56
@@ -266,7 +308,8 @@ EXPECTED_NEWTON = {"box Newton": [(2, True)] * 5, "ELL Newton": [(2, True)] * 5,
                    "box secant": [(1, True)] * 5,
                    "ELL Newton, stabilized": [(2, True)] * 5,
                    "box secant, stabilized": [(1, True)] * 5,
-                   "Newton, AMG": [(1, True)] * 5}
+                   "Newton, AMG": [(1, True)] * 5,
+                   "hex+wedge Newton": [(4, True)] * 5}
 #: the dissipated-energy fraction of the stabilized cases (the CLI's
 #: ``--stabilize`` and ``SolverConfig.stabilize_factor``)
 STABILIZE = 2e-4
@@ -274,7 +317,16 @@ STABILIZE = 2e-4
 #: z=0 clamped, the z=1 face pushed down by 0.1 in four increments (with
 #: 0.2 the CPU run cut back; 0.1 converges in every increment)
 NL_NX, NL_UZ, NL_STATIC = 12, -0.1, "0.25, 1., 1e-05, 0.25"
-EXPECTED_CLI_INCREMENTS = {"CLI nonlinear": 4, "CLI nonlinear, stabilized": 4}
+EXPECTED_CLI_INCREMENTS = {"CLI nonlinear": 4, "CLI nonlinear, stabilized": 4,
+                           "CLI multi-block nonlinear": 4}
+#: the hex + wedge box of the multi-block phases (box_hexes(MB_N)'s grid;
+#: 55,296 C3D8 + 110,592 C3D6, 352,947 dofs) and the wedges' neo-Hookean
+#: constants (mu = 2 C1 and lambda = 2 D1 those of E 1000, nu 0.3); the
+#: small nlgeom model of the CLI phase
+MB_N, MB_C1, MB_D1, MB_NL_N = 48, 192.3, 288.5, 6
+#: bays per side of the B31 lattice: 4,913 nodes, 29,478 dofs, 13,872
+#: members, a 6.95 GB dense f64 operator
+BEAM_N = 16
 
 
 def check(ok: bool, what: str) -> None:
@@ -2375,6 +2427,649 @@ def cli_amg_run(torch, card):
     return launches, iters
 
 
+# --------------------------------------------------------------------------- #
+# multi-block models and B31 beams (phases 18-21)
+# --------------------------------------------------------------------------- #
+def hex_wedge_box(n: int):
+    """box_hexes(n, n, n)'s node grid: the cells with i < n // 2 as C3D8,
+    the others split into two C3D6 each as box_wedges splits them (its
+    first wedges, then its second ones), conforming on x = 0.5.  Returns
+    (nodes, hexes, wedges)."""
+    from femcy_tpu_torch.meshgen import box_hexes, box_wedges
+
+    hexes, wedges = box_hexes(n, n, n), box_wedges(n, n, n)
+    cells = n ** 3
+    left = np.arange(cells) // (n * n) < n // 2
+    w = wedges.elements
+    return (hexes.nodes, hexes.elements[left],
+            np.concatenate([w[:cells][~left], w[cells:][~left]]))
+
+
+def hex_wedge_blocks(n: int):
+    """(nodes, blocks) of the hex + wedge box: C3D8 LinearIsotropic(1000,
+    0.3) and C3D6 NeoHookean(C1=192.3, D1=288.5), which linearises to the
+    same E and nu (mu = 2 C1, lambda = 2 D1)."""
+    from femcy_tpu_torch import ElementBlock, LinearIsotropic, NeoHookean
+    from femcy_tpu_torch.elements import HEX8, WEDGE6
+
+    nodes, hexes, wedges = hex_wedge_box(n)
+    return nodes, [
+        ElementBlock(hexes, HEX8, LinearIsotropic(1000.0, 0.3), "hexes"),
+        ElementBlock(wedges, WEDGE6, NeoHookean(C1=MB_C1, D1=MB_D1),
+                     "wedges")]
+
+
+def two_material_blocks(mesh):
+    """The elements of ``mesh`` in two blocks by centroid z: z < 0.5 soft
+    LinearIsotropic(1000, 0.3), the rest stiff LinearIsotropic(4000, 0.3)."""
+    from femcy_tpu_torch import ElementBlock, LinearIsotropic
+
+    low = mesh.nodes[mesh.elements].mean(axis=1)[:, 2] < 0.5
+    return [ElementBlock(mesh.elements[low], mesh.element,
+                         LinearIsotropic(1000.0, 0.3), "soft"),
+            ElementBlock(mesh.elements[~low], mesh.element,
+                         LinearIsotropic(4000.0, 0.3), "stiff")]
+
+
+def boundary_arrays(nodes):
+    """(rhs, fixed, sval) of the slices' boundary model: z=0 clamped, ux =
+    0.01 on z=1, no load."""
+    bottom = np.nonzero(nodes[:, 2] < 1e-9)[0]
+    top = np.nonzero(nodes[:, 2] > nodes[:, 2].max() - 1e-9)[0]
+    n_dof = nodes.size
+    fixed = np.zeros(n_dof, bool)
+    sval = np.zeros(n_dof)
+    fixed[bottom[:, None] * 3 + np.arange(3)] = True
+    fixed[top * 3] = True
+    sval[top * 3] = 0.01
+    return np.zeros(n_dof), fixed, sval
+
+
+def multiblock_kernel_checks(torch, system, label: str):
+    """Each block's M1 output on the card bit for bit its plain version run
+    on the CPU (rows the block does not touch among them: zero), and M4 on
+    seeded element forces the same; the union operator (the blocks' M1
+    outputs summed in block order) against the f64 host twin
+    (``union_values_host``) within 1e-12 relative."""
+    from femcy_tpu_torch import assembly
+    from femcy_tpu_torch.multiblock import union_values_host
+
+    values = None
+    rng = np.random.default_rng(11)
+    for bi, (blk, ba) in enumerate(zip(system.blocks, system._block_arrs)):
+        Ke = assembly.element_stiffness(ba["dsdX0"], ba["vol0"], ba["C"])
+        v, _ = m1_against_cpu_plain(torch, Ke, system._plans[bi],
+                                    f"{label} block {bi}")
+        del Ke
+        values = v if values is None else values + v
+        f_e = torch.as_tensor(rng.standard_normal(
+            (blk.elements.shape[0], blk.element.n_nodes, 3)),
+            dtype=torch.float64, device=DEVICE)
+        m4_against_cpu_plain(torch, f_e, system._plans[bi],
+                             f"{label} block {bi}")
+    t = time.perf_counter()
+    host = union_values_host(system.nodes, system.blocks,
+                             system._block_targets, system.pattern)
+    host_s = time.perf_counter() - t
+    err = float(np.abs(values.cpu().numpy() - host).max() / np.abs(host).max())
+    check(err <= TOL["float64"], f"{label}: union operator vs the f64 host "
+          f"twin {err:.3e}")
+    print(f"{label} kernel checks: M1 and M4 of each of the "
+          f"{len(system.blocks)} blocks bit-equal to their CPU plain "
+          f"versions, bit-identical reruns; union operator vs the f64 host "
+          f"twin {err:.3e} (tol {TOL['float64']:.0e}; twin {host_s:.2f} s)",
+          flush=True)
+
+
+def multiblock_solve(torch, card, system, label: str, bcs):
+    """One linear solve of ``system`` on the card, every launch counter
+    zeroed just before and read just after; checks success, M1 once per
+    block, the solver's SpMV (M2 once per CG iteration, or M3 as the
+    V-cycle predicts), no other kernel, ||A x - b||_inf <= cg_eps *
+    ||b||_inf with the plain ELL SpMV, finite stresses, Mises and energy;
+    then a warm solve with the same iterations.  Returns (launches, CG
+    iterations)."""
+    from femcy_tpu_torch.solvers.cg import ell_spmv
+
+    rhs, fixed, sval = bcs
+    amg = system.config.preconditioner == "amg"
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    system.solve(rhs, fixed, sval)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    iters = system._last_cg_iters
+    n_blocks = len(system.blocks)
+    check(iters > 0, f"{label}: the CG did not run")
+    check(launches["ell_scatter"] == n_blocks,
+          f"{label}: M1 launched {launches['ell_scatter']} times for "
+          f"{n_blocks} blocks")
+    spmv = "bell_spmv" if amg else "ell_spmv"
+    want = ((iters + 1) * cycle_launches(system._amg) + iters) if amg else iters
+    check(launches[spmv] == want, f"{label}: {spmv} launched "
+          f"{launches[spmv]} times, {want} expected for {iters} iterations")
+    for name, n in launches.items():
+        if name not in ("ell_scatter", spmv):
+            check(n == 0, f"{label}: {name} launched {n} times")
+    fixed_t = torch.as_tensor(fixed, device=DEVICE)
+    values_bc, b = system._linear_system(
+        torch.as_tensor(rhs, device=DEVICE), fixed_t,
+        torch.as_tensor(sval, device=DEVICE))
+    res = float((ell_spmv(values_bc, system._arrs["colidx"], system.dof)
+                 - b).abs().max())
+    bmax = float(b.abs().max())
+    del values_bc, b
+    check(res <= system.config.cg_eps * bmax,
+          f"{label}: ||Ax-b||_inf {res:.3e} > cg_eps*||b||_inf")
+    max_mises = 0.0
+    for bi, blk in enumerate(system.blocks):
+        strain, stress, mises = system.block_stress(bi)
+        nodal = system.extrapolate_block(bi, mises)
+        E, G = blk.elements.shape[0], blk.element.n_gp
+        for what, t_, shape in (("stress", stress, (E, G, 3, 3)),
+                                ("mises", mises, (E, G)),
+                                ("nodal", nodal, (E, blk.element.n_nodes))):
+            check(tuple(t_.shape) == shape, f"{label}: block {bi} {what} shape")
+            check(bool(torch.isfinite(t_).all()),
+                  f"{label}: block {bi} {what} not finite")
+        max_mises = max(max_mises, float(mises.max()))
+        del strain, stress, mises, nodal
+    energy = system.elastic_energy()
+    check(np.isfinite(energy) and energy > 0.0, f"{label}: energy {energy}")
+    first = system._amg
+    t = time.perf_counter()
+    system.solve(rhs, fixed, sval)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t
+    check(system._last_cg_iters == iters, f"{label}: warm solve iterations")
+    check(system._amg is first, f"{label}: the warm solve rebuilt the AMG")
+    extra = ""
+    if amg:
+        extra = (f"; hierarchy {[lv.n_dof for lv in first.levels]} dofs, "
+                 f"host phases {system._amg_host_seconds}, AlgebraicMultigrid "
+                 f"setup {first.setup_seconds}")
+    print(f"{label} on {card}: first solve {first_s:.4f} s, warm "
+          f"{warm_s:.4f} s, {iters} CG iterations, ||Ax-b||_inf/||b||_inf "
+          f"{res / bmax:.3e}, max mises {max_mises:.6g}, energy {energy:.6g}, "
+          f"peak memory {peak / 1e9:.3f} GB; launches {launches}{extra}",
+          flush=True)
+    return launches, iters
+
+
+def multiblock_setup(torch, card, label: str, nodes, blocks, **config):
+    from femcy_tpu_torch import MultiBlockSystem, SolverConfig
+
+    t = time.perf_counter()
+    system = MultiBlockSystem(nodes, blocks, SolverConfig(**config),
+                              device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    check(system.dtype == torch.float64, "default dtype is not float64")
+    sizes = ", ".join(f"{b.elements.shape[0]} {b.element.name} [{b.name}]"
+                      for b in system.blocks)
+    print(f"{label}: {sizes}; {system.n_dof} dofs; union ELL width "
+          f"{system.pattern.width} (node width {system.pattern.node_width}); "
+          f"MultiBlockSystem init {init_s:.3f} s "
+          f"({', '.join(f'{k} {v:.3f} s' for k, v in system._init_seconds.items())})",
+          flush=True)
+    return system
+
+
+def two_material_run(torch, card):
+    """Phase 18: the ELL slice's mesh in two materials through
+    MultiBlockSystem, Jacobi CG (M1 x 2 + M2), then on the same system
+    preconditioner="amg" (M1 x 2 + M3, the hierarchy from the f64 host
+    twin).  Returns {path: (launches, iterations)}."""
+    from femcy_tpu_torch import SolverConfig
+    from femcy_tpu_torch.meshgen import unstructured_box_tets
+
+    t_phase = time.perf_counter()
+    mesh = unstructured_box_tets(UNSTRUCT[-1])
+    system = multiblock_setup(torch, card, "two-material ELL", mesh.nodes,
+                              two_material_blocks(mesh), linear_solver="cg")
+    multiblock_kernel_checks(torch, system, "two-material ELL")
+    bcs = boundary_arrays(mesh.nodes)
+    out = {"two-material ELL": multiblock_solve(
+        torch, card, system, "two-material ELL", bcs)}
+    system.config = SolverConfig(linear_solver="cg", preconditioner="amg")
+    out["two-material AMG"] = multiblock_solve(
+        torch, card, system, "two-material AMG", bcs)
+    del system
+    torch.cuda.empty_cache()
+    print(f"two-material phase wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return out
+
+
+def hex_wedge_run(torch, card):
+    """Phase 19: the hex + wedge box (``MB_N``) through MultiBlockSystem:
+    the linear solve (Jacobi CG, M1 for npe 8 and 6, M2), then the Newton
+    twist of ``TWIST`` through solve_nonlinear.  Returns (linear
+    (launches, iterations), Newton (launches, history))."""
+    from femcy_tpu_torch.assembly_host import internal_force_host
+    from femcy_tpu_torch.bc import build_dirichlet_arrays
+    from femcy_tpu_torch.io.inp import DirichletBC
+    from femcy_tpu_torch.mesh import FEMesh
+    from femcy_tpu_torch.user import make_rotation_dirichlet
+
+    t_phase = time.perf_counter()
+    nodes, blocks = hex_wedge_blocks(MB_N)
+    system = multiblock_setup(torch, card, "hex+wedge", nodes, blocks,
+                              linear_solver="cg")
+    multiblock_kernel_checks(torch, system, "hex+wedge")
+    linear = multiblock_solve(torch, card, system, "hex+wedge",
+                              boundary_arrays(nodes))
+
+    label = "hex+wedge Newton"
+    bottom = np.nonzero(nodes[:, 2] < 1e-9)[0]
+    top = np.nonzero(nodes[:, 2] > 1 - 1e-9)[0]
+    model = dataclasses.make_dataclass(
+        "TwistModel", ["dirichlet_bcs", "neumann_bcs", "time_incs"])(
+        [DirichletBC(bottom, d, 0.0) for d in range(3)]
+        + [DirichletBC(top, d, 0.0, True) for d in range(3)], [], dict(TWIST))
+    hook = make_rotation_dirichlet((0.5, 0.5, 0.0))
+    walls = {"eval": 0.0, "solve": 0.0, "evals": 0}
+    evaluate, lin_solve = system._newton_eval, system._solve_values
+
+    def timed(key, fn):
+        def run(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            walls[key] += time.perf_counter() - t0
+            walls["evals"] += key == "eval"
+            return out
+        return run
+
+    system._newton_eval = timed("eval", evaluate)
+    system._solve_values = timed("solve", lin_solve)
+    n_cg = len(system._cg_iters_log)
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    report = system.solve_nonlinear(model, user_dirichlet=hook)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    system._newton_eval, system._solve_values = evaluate, lin_solve
+    history = [(r.newton_iters, r.converged) for r in report.increments]
+    evals, cg = walls["evals"], system._cg_iters_log[n_cg:]
+    print(f"{label} on {card}: {system.n_dof} dofs; solve {wall:.3f} s "
+          f"(evaluations {walls['eval']:.3f} s, {evals} of them, "
+          f"{walls['eval'] / max(evals, 1) * 1e3:.2f} ms each; linear solves "
+          f"{walls['solve']:.3f} s), history {history}, CG iterations per "
+          f"solve {cg}, peak memory {peak / 1e9:.3f} GB; launches {launches}",
+          flush=True)
+    check(report.success, f"{label}: {report.message}")
+    want = EXPECTED_NEWTON[label]
+    check(history == want, f"{label}: history {history}, {want} expected")
+    n_blocks = len(blocks)
+    check(launches["internal_force"] == launches["ell_scatter"]
+          == n_blocks * evals > 0,
+          f"{label}: M4 {launches['internal_force']} and M1 "
+          f"{launches['ell_scatter']} for {evals} evaluations of {n_blocks} "
+          "blocks")
+    check(launches["ell_spmv"] == sum(cg) > 0, f"{label}: M2 {launches}")
+    for name, n in launches.items():
+        if name not in ("internal_force", "ell_scatter", "ell_spmv"):
+            check(n == 0, f"{label}: {name} launched {n} times")
+    # the f64 host residual (each block's internal_force_host, summed in
+    # block order) at the final dof against the device's
+    view = dataclasses.make_dataclass("View", ["n_dof", "dm", "nodes"])(
+        system.n_dof, 3, nodes)
+    fixed, sval = build_dirichlet_arrays(model.dirichlet_bcs, view,
+                                         system.time1, 1.0, hook)
+    dof = system.dof.cpu().numpy()
+    t = time.perf_counter()
+    r_host = sum(internal_force_host(FEMesh(nodes, b.elements, b.element),
+                                     b.material, dof) for b in blocks)
+    host_s = time.perf_counter() - t
+    r_host[fixed] = 0.0
+    rms_host = float(np.sqrt(np.mean(r_host * r_host)))
+    rms_dev = report.increments[-1].residual
+    rel_rms = abs(rms_dev - rms_host) / rms_host
+    _, _, r_dev, _ = system._newton_eval(
+        system.dof, torch.zeros_like(system.dof),
+        torch.as_tensor(fixed, device=DEVICE),
+        torch.as_tensor(sval, device=DEVICE))
+    rel_vec = float(np.abs(r_dev.cpu().numpy() - r_host).max()
+                    / np.abs(r_host).max())
+    check(rel_rms <= 1e-8 and rel_vec <= 1e-8,
+          f"{label}: device residual vs f64 host: rms {rel_rms:.3e}, vector "
+          f"{rel_vec:.3e}")
+    energy = system.elastic_energy()
+    check(np.isfinite(energy) and energy > 0.0, f"{label}: energy {energy}")
+    turned = float(np.abs(dof.reshape(-1, 3)[top]).max())
+    print(f"{label} checks: last residual {rms_dev:.6e} (rms), f64 host "
+          f"residual {rms_host:.6e} (rel {rel_rms:.3e}; vector rel "
+          f"{rel_vec:.3e}; host {host_s:.2f} s), max top-face displacement "
+          f"{turned:.6f}, energy {energy:.6g}; phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    del system, r_dev
+    torch.cuda.empty_cache()
+    return linear, (launches, history)
+
+
+def multiblock_inp_text(nodes, blocks, nlgeom: bool = False,
+                        top=("top, 1, 1, 0.01",), pressure=2.0,
+                        static: str = "1., 1., 1e-05, 1.") -> str:
+    """Hex + wedge ``blocks`` over ``nodes`` as an Abaqus .inp: one
+    ``*Element`` block and ``*Solid Section`` per block (the hexes linear
+    elastic, the wedges ``*Hyperelastic, neo hooke``), z=0 clamped, the
+    ``top`` *Boundary lines on the z=max node set and, unless ``pressure``
+    is None, a pressure on the x=max faces through a *Surface of
+    per-block, per-face-number element sets."""
+    import io
+
+    x = nodes[:, 0]
+    buf = io.StringIO()
+    buf.write("*Heading\nchip_smoke multi-block model\n*Node\n")
+    np.savetxt(buf, np.hstack([np.arange(1, nodes.shape[0] + 1)[:, None],
+                               nodes]),
+               fmt=["%d"] + ["%.17g"] * 3, delimiter=", ")
+    start, faces = 1, {}
+    etypes = {"hex8": "C3D8", "wedge6": "C3D6"}
+    for blk in blocks:
+        E = blk.elements.shape[0]
+        buf.write(f"*Element, type={etypes[blk.element.name]}, "
+                  f"elset={blk.name}\n")
+        np.savetxt(buf, np.hstack([np.arange(start, start + E)[:, None],
+                                   blk.elements.astype(np.int64) + 1]),
+                   fmt="%d", delimiter=", ")
+        for k, facets in enumerate(blk.element.inp_surface_num):
+            local = [ln for f in facets for ln in f]
+            on = (x[blk.elements[:, local]] > x.max() - 1e-9).all(axis=1)
+            if on.any():
+                faces[f"_x{blk.name}{k + 1}", k + 1] = np.nonzero(on)[0] + start
+        start += E
+    lines = []
+    z = nodes[:, 2]
+    for name, sel in (("bot", z < 1e-9), ("top", z > z.max() - 1e-9)):
+        lines += [f"*Nset, nset={name}, instance=a",
+                  ", ".join(str(i + 1) for i in np.nonzero(sel)[0])]
+    load = []
+    if pressure is not None:
+        for (name, _), eles in faces.items():
+            lines += [f"*Elset, elset={name}, internal, instance=a",
+                      ", ".join(str(e) for e in eles)]
+        lines.append("*Surface, type=ELEMENT, name=xload")
+        lines += [f"{name}, S{k}" for name, k in faces]
+        load = ["*Dsload", f"xload, P, {pressure!r}"]
+    lines += [f"*Solid Section, elset={blocks[0].name}, material=steel",
+              f"*Solid Section, elset={blocks[1].name}, material=rubber",
+              "*Material, name=steel", "*Elastic", "1000., 0.3",
+              "*Material, name=rubber", "*Hyperelastic, neo hooke",
+              f"{MB_C1!r}, {1.0 / MB_D1!r}",
+              f"*Step, name=s, nlgeom={'YES' if nlgeom else 'NO'}",
+              "*Static", static, "*Boundary", "bot, 1, 1", "bot, 2, 2",
+              "bot, 3, 3", *top, *load, "*End Step"]
+    buf.write("\n".join(lines) + "\n")
+    return buf.getvalue()
+
+
+def cli_multiblock_run(torch, card):
+    """Phase 20: the hex + wedge box as a two-*Solid Section .inp with a
+    *Dsload on x = 1 through the CLI on the card (``--stress 2 --save-vtk
+    --save-html``): rc 0, M1 once per block and M2 once per CG iteration,
+    no other kernel, the printed lines equal to those formatted from a
+    ``system_from_model(read_inp_multi(...))`` solve, the VTK's mixed cell
+    types and the HTML's triangles; then a small two-material nlgeom .inp,
+    plain and with --stabilize (warned about and ignored: the same lines
+    after the warning).  Returns {path: (launches, CG iterations or
+    increments)}."""
+    import json as _json
+    import re
+    import tempfile
+
+    from femcy_tpu_torch import SolverConfig, read_inp_multi, system_from_model
+
+    t_phase = time.perf_counter()
+    nodes, blocks = hex_wedge_blocks(MB_N)
+    out = {}
+    label = "CLI, multi-block"
+    with tempfile.TemporaryDirectory() as tmp:
+        path, vtk, html = f"{tmp}/model.inp", f"{tmp}/out.vtk", f"{tmp}/out.html"
+        with open(path, "w") as f:
+            f.write(multiblock_inp_text(nodes, blocks))
+        rc, text, launches, walls, cli_s = run_cli(
+            [path, "--stress", "2", "--save-vtk", vtk, "--save-html", html])
+        print(f"{label}: stdout of the CLI:\n{text}", end="", flush=True)
+        check(rc == 0, f"{label}: exit code {rc}")
+        model = read_inp_multi(path)
+        system = system_from_model(model, SolverConfig(), device=DEVICE)
+        system.solve_model(model)
+        iters = system._last_cg_iters
+        gp, nodal, comp, nodal_comp = [], [], [], []
+        for bi in range(len(system.blocks)):
+            _, stress, mises = system.block_stress(bi)
+            gp.append(float(mises.max()))
+            nodal.append(float(system.extrapolate_block(bi, mises).max()))
+            c = stress[:, :, 2, 2]
+            comp.append(float(c.abs().max()))
+            nodal_comp.append(float(system.extrapolate_block(bi, c).max()))
+            del stress, mises, c
+        blocks_txt = ", ".join(
+            f"{blk.elements.shape[0]} {etype}[{blk.name or bi}]"
+            for bi, ((etype, _, _), blk) in enumerate(
+                zip(model.element_blocks, system.blocks)))
+        want = [
+            f"model: {blocks_txt}; {model.nodes.shape[0]} nodes, "
+            f"{system.n_dof} dofs, 2 material(s), geometric_nonlinear=False",
+            f"total elastic energy = {system.elastic_energy():.6g}",
+            f"max Mises stress at integration points = {max(gp):.6g}",
+            f"max nodal (extrapolated) Mises stress = {max(nodal):.6g}",
+            f"max |dof| (displacement) = {float(system.dof.abs().max()):.6g}",
+            f"max |stress[22]| at integration points = {max(comp):.6g}",
+            f"max nodal stress[22] = {max(nodal_comp):.6g}",
+        ]
+        n_tri = sum(system.block_mesh(bi).surface_triangles[0].shape[0]
+                    for bi in range(len(system.blocks)))
+        E = [b.elements.shape[0] for b in system.blocks]
+        del system
+        torch.cuda.empty_cache()
+        got = [ln for ln in text.splitlines()
+               if ln.startswith("model:") or " = " in ln]
+        check(got == want, f"{label}: CLI printed {got}, the system gives "
+              f"{want}")
+        check(launches["ell_scatter"] == 2 and launches["ell_spmv"] == iters > 0,
+              f"{label}: launches {launches} for {iters} CG iterations")
+        for name, n in launches.items():
+            if name not in ("ell_scatter", "ell_spmv"):
+                check(n == 0, f"{label}: {name} launched {n} times")
+        with open(vtk) as f:
+            vtext = f.read()
+        types = vtext.split(f"CELL_TYPES {sum(E)}\n")[1].split(
+            "\n", sum(E))[:sum(E)]
+        check(types == ["12"] * E[0] + ["13"] * E[1],
+              f"{label}: VTK cell types")
+        del vtext, types
+        with open(html) as f:
+            payload = _json.loads(re.search(r"const D=(\{.*?\});",
+                                            f.read()).group(1))
+        check(len(payload["tri"]) // 3 == n_tri, f"{label}: HTML triangles")
+        del payload
+    out[label] = (launches, iters)
+    stages = ", ".join(f"{k} {v:.3f} s" for k, v in walls.items())
+    print(f"{label} on {card}: rc 0, lines equal to system_from_model's, CG "
+          f"{iters} iterations, launches M1 {launches['ell_scatter']} M2 "
+          f"{launches['ell_spmv']}; CLI {cli_s:.3f} s ({stages}); VTK cells "
+          f"{E[0]} hex8 + {E[1]} wedge6, HTML {n_tri} triangles", flush=True)
+
+    small_nodes, small_blocks = hex_wedge_blocks(MB_NL_N)
+    lines = {}
+    for label, extra in (("CLI multi-block nonlinear", []),
+                         ("CLI multi-block nonlinear, --stabilize",
+                          ["--stabilize", repr(STABILIZE)])):
+        with tempfile.TemporaryDirectory() as tmp:
+            path = f"{tmp}/nonlinear.inp"
+            with open(path, "w") as f:
+                f.write(multiblock_inp_text(
+                    small_nodes, small_blocks, nlgeom=True,
+                    top=(f"top, 3, 3, {NL_UZ!r}",), pressure=None,
+                    static=NL_STATIC))
+            rc, text, launches, walls, wall = run_cli([path, *extra])
+        print(f"{label}: stdout of the CLI:\n{text}", end="", flush=True)
+        check(rc == 0, f"{label}: exit code {rc}")
+        solve = re.search(r"solve: converged in (\d+) increment", text)
+        n_inc = int(solve.group(1)) if solve else -1
+        want = EXPECTED_CLI_INCREMENTS["CLI multi-block nonlinear"]
+        check(n_inc == want, f"{label}: {n_inc} increments, {want} expected")
+        check(launches["internal_force"] == launches["ell_scatter"]
+              >= 2 * n_inc and launches["internal_force"] % 2 == 0,
+              f"{label}: M4 {launches['internal_force']}, M1 "
+              f"{launches['ell_scatter']} for two blocks")
+        for name, n in launches.items():
+            if name not in ("internal_force", "ell_scatter"):
+                check(n == 0, f"{label}: {name} launched {n} times")
+        warned = text.startswith("warning: --stabilize is only supported")
+        check(warned == bool(extra), f"{label}: the --stabilize warning")
+        lines[label] = [ln for ln in text.splitlines()
+                        if ln.startswith("model:") or " = " in ln]
+        out[label] = (launches, n_inc)
+        stages = ", ".join(f"{k} {v:.3f} s" for k, v in walls.items())
+        print(f"{label} on {card}: {n_inc} increments, M4 = M1 = "
+              f"{launches['internal_force']}; CLI {wall:.3f} s ({stages})",
+              flush=True)
+    check(len(set(map(tuple, lines.values()))) == 1,
+          "--stabilize changed the multi-block nonlinear result")
+    print(f"CLI multi-block phase wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return out
+
+
+def lattice(n: int, seed: int = 0):
+    """A B31 frame of n x n x n unit bays (members along x, y and z between
+    neighbouring grid nodes; RECT 0.05 x 0.08 steel), the z=0 nodes
+    ENCASTRE, a seeded load of up to 1 kN along each axis on every z=n
+    node."""
+    from femcy_tpu_torch import BeamModel, BeamSection
+
+    g = np.arange(n + 1)
+    X, Y, Z = np.meshgrid(g, g, g, indexing="ij")
+    nodes = np.stack([X, Y, Z], axis=-1).reshape(-1, 3).astype(np.float64)
+    nid = np.arange(nodes.shape[0]).reshape(n + 1, n + 1, n + 1)
+    members = [np.stack([nid[:-1].ravel(), nid[1:].ravel()], 1),
+               np.stack([nid[:, :-1].ravel(), nid[:, 1:].ravel()], 1),
+               np.stack([nid[:, :, :-1].ravel(), nid[:, :, 1:].ravel()], 1)]
+    top = nid[:, :, n].ravel()
+    loads = np.random.default_rng(seed).uniform(-1e3, 1e3, (top.size, 3))
+    return BeamModel(
+        nodes=nodes, elements=np.concatenate(members).astype(np.int32),
+        section=BeamSection.rect(0.05, 0.08), E=210.0e9, nu=0.3,
+        dirichlet=[(int(b), d, 0.0) for b in nid[:, :, 0].ravel()
+                   for d in range(6)],
+        loads=[(int(t), d, float(v)) for t, row in zip(top, loads)
+               for d, v in enumerate(row)])
+
+
+def beam_run(torch, card):
+    """Phase 21: solve_beam on the card on the ``BEAM_N``-bay lattice,
+    twice (bit-identical), every launch counter zeroed around it (the path
+    runs no hand-written kernel: the dense Cholesky is a library call, as
+    femcy_tpu's is XLA's).  Checks: the relative residual on the free
+    dofs, the reactions against the loads, one- and ten-element tip-loaded
+    cantilevers against the Timoshenko closed form; then the CLI's B31
+    route on a small lattice .inp.  Returns the launch counts."""
+    import tempfile
+
+    from femcy_tpu_torch import BeamModel, BeamSection, solve_beam
+    from femcy_tpu_torch.beam import _assemble
+
+    t_phase = time.perf_counter()
+    model = lattice(BEAM_N)
+    n = model.n_dof
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    first = solve_beam(model, device=DEVICE)
+    wall1 = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    t = time.perf_counter()
+    second = solve_beam(model, device=DEVICE)
+    wall2 = time.perf_counter() - t
+    launches = read_launches()
+    check(not any(launches.values()), f"beam lattice: a kernel launched "
+          f"{launches}")
+    for field in ("u", "reactions", "end_forces"):
+        check(np.array_equal(getattr(first, field), getattr(second, field)),
+              f"beam lattice: {field} differs between two solves")
+    u = first.u.reshape(-1)
+    check(bool(np.isfinite(u).all()), "beam lattice: u not finite")
+    f = np.zeros(n)
+    for node, dof, val in model.loads:
+        f[6 * node + dof] += val
+    free = np.ones(n, bool)
+    free[[6 * node + dof for node, dof, _ in model.dirichlet]] = False
+    K, _, _, _ = _assemble(model, torch.device(DEVICE), torch.float64)
+    r = (K @ torch.as_tensor(u, device=DEVICE)).cpu().numpy() - f
+    del K
+    torch.cuda.empty_cache()
+    res = float(np.abs(r[free]).max() / np.abs(f).max())
+    check(res <= 1e-10, f"beam lattice: relative residual {res:.3e}")
+    applied = f.reshape(-1, 6)[:, :3].sum(axis=0)
+    balance = float(np.abs(first.reactions[:, :3].sum(axis=0) + applied).max()
+                    / np.abs(f).sum())
+    check(balance <= 1e-9, f"beam lattice: reactions off the loads by "
+          f"{balance:.3e}")
+    E_, nu = 210.0e9, 0.3
+    G = E_ / (2 * (1 + nu))
+    sec = BeamSection.rect(0.05, 0.08)
+    tips = []
+    for n_el in (1, 10):
+        x = np.linspace(0.0, 2.0, n_el + 1)
+        cant = BeamModel(
+            np.stack([x, 0 * x, 0 * x], 1),
+            np.stack([np.arange(n_el), np.arange(1, n_el + 1)], 1)
+            .astype(np.int32), sec, E_, nu,
+            [(0, d, 0.0) for d in range(6)], [(n_el, 1, 1000.0)])
+        tip = solve_beam(cant, device=DEVICE).u[n_el, 1]
+        exact = (1000.0 * 8.0 / (3 * E_ * sec.I11)
+                 + 1000.0 * 2.0 / (G * sec.kappa2 * sec.A))
+        tips.append(abs(tip / exact - 1.0))
+        check(tips[-1] <= 1e-9, f"cantilever of {n_el} elements: tip "
+              f"{tip!r}, Timoshenko {exact!r}")
+    print(f"beam lattice on {card}: {BEAM_N}^3 bays, {model.nodes.shape[0]} "
+          f"nodes, {n} dofs, {model.elements.shape[0]} B31; solve "
+          f"{wall1:.3f} s ({', '.join(f'{k} {v:.4f} s' for k, v in first.seconds.items())}), "
+          f"again {wall2:.3f} s ({', '.join(f'{k} {v:.4f} s' for k, v in second.seconds.items())}), "
+          f"bit-identical; peak memory {peak / 1e9:.3f} GB (dense K "
+          f"{n * n * 8 / 1e9:.3f} GB); free-dof residual {res:.3e}, reactions "
+          f"vs loads {balance:.3e}; max |u| {np.abs(first.u[:, :3]).max():.6e}; "
+          f"cantilevers of 1 and 10 elements vs Timoshenko "
+          f"{tips[0]:.3e}, {tips[1]:.3e}", flush=True)
+
+    small = lattice(2)
+    base = sorted({node for node, _, _ in small.dirichlet})
+    text = "\n".join(
+        ["*Heading", "B31 lattice", "*Node"]
+        + [f"{i + 1}, " + ", ".join(repr(float(c)) for c in p)
+           for i, p in enumerate(small.nodes)]
+        + ["*Element, type=B31, elset=frame"]
+        + [f"{e + 1}, {a + 1}, {b + 1}" for e, (a, b) in enumerate(small.elements)]
+        + ["*Nset, nset=base", ", ".join(str(b + 1) for b in base),
+           "*Beam Section, elset=frame, material=steel, section=RECT",
+           "0.05, 0.08", "0., 0., -1.", "*Material, name=steel", "*Elastic",
+           "210.e9, 0.3", "*Boundary", "base, ENCASTRE", "*Step", "*Static",
+           "*Cload"]
+        + [f"{node + 1}, {d + 1}, {v!r}" for node, d, v in small.loads]
+        + ["*End Step"]) + "\n"
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/frame.inp"
+        with open(path, "w") as fh:
+            fh.write(text)
+        rc, out, cli_launches, walls, wall = run_cli([path])
+    print(f"CLI, B31: stdout of the CLI:\n{out}", end="", flush=True)
+    check(rc == 0, f"CLI, B31: exit code {rc}")
+    check(out.startswith("model: 54 B31 elements, 27 nodes, 162 dofs"),
+          "CLI, B31: model line")
+    print(f"beam phase wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     card = card_line()
     print(card, flush=True)
@@ -2491,6 +3186,19 @@ def main() -> int:
                    dict(geometric_stiffness=False, preconditioner="multigrid",
                         linear_solver="cg", stabilize_factor=STABILIZE),
                    "structured_force", "structured_fused", warm=False))
+    t = time.perf_counter()
+    for path, (counts, n) in two_material_run(torch, card).items():
+        by_path[path], iters[path] = counts, n
+    (by_path["hex+wedge"], iters["hex+wedge"]), (
+        by_path["hex+wedge Newton"], histories["hex+wedge Newton"]) = (
+        hex_wedge_run(torch, card))
+    for path, (counts, n) in cli_multiblock_run(torch, card).items():
+        by_path[path] = counts
+        if path in EXPECTED_CG_ITERS:
+            iters[path] = n
+    by_path["beam lattice"] = beam_run(torch, card)
+    print(f"multi-block and beam phases: wall {time.perf_counter() - t:.1f} s",
+          flush=True)
     launches["structured_accumulate"] = by_path["box Newton"][
         "structured_accumulate"]
     launches["structured_force"] = by_path["box Newton"]["structured_force"]

@@ -6,8 +6,11 @@ static analysis of any mesh, linear or geometric-nonlinear: ``read_inp``
 or ``meshgen`` -> ``FEMesh`` -> ``material_from_inp`` -> ``FEMSystem`` ->
 assembly -> Dirichlet elimination -> direct solve or PCG (inside the
 Newton loop on the nonlinear path) -> strain, stress, Mises, energy and
-extrapolation.  A structured box (``meshgen.box_tets``)
-assembles from its node coordinates into the analytic DIA layout and
+extrapolation; models of several element types or materials
+(``read_inp_multi`` -> ``system_from_model`` -> ``MultiBlockSystem``,
+each block scattered over one union pattern) and B31 beam lattices
+(``read_beam_inp`` -> ``solve_beam``, a dense Cholesky solve).  A
+structured box (``meshgen.box_tets``) assembles from its node coordinates into the analytic DIA layout and
 solves with a Jacobi, block-Jacobi or geometric-multigrid PCG; any other
 mesh goes through the ELL pattern (native C++ code, native/) and, where its
 offsets are bounded, the general DIA layout, with a Jacobi (or, on DIA,
@@ -20,7 +23,8 @@ rewritten by hand in CUDA for sm_90a (kernels/, csrc/): the DIA SpMV
 stiffness scatter and ELL SpMV, the algebraic multigrid's block-ELL
 SpMV, and the Newton path's internal-force scatters (general and box).
 
-Tensors live on the device given to ``FEMSystem``: the card unless
+Tensors live on the device given to ``FEMSystem`` (and
+``MultiBlockSystem``, ``solve_beam``): the card unless
 ``device="cpu"`` is passed (no auto-detection, and no CPU fallback), in
 float64 by default; ``FEMCY_TPU_X64=0`` selects float32, as in femcy_tpu.
 TF32 is off for matmuls and convolutions: f32 products run at full f32
@@ -50,6 +54,17 @@ from femcy_tpu_torch.materials import (  # noqa: E402
     NeoHookean,
     material_from_inp,
 )
+from femcy_tpu_torch.multiblock import (  # noqa: E402
+    ElementBlock,
+    MultiBlockSystem,
+    system_from_model,
+)
+from femcy_tpu_torch.beam import (  # noqa: E402
+    BeamModel,
+    BeamSection,
+    read_beam_inp,
+    solve_beam,
+)
 from femcy_tpu_torch import meshgen  # noqa: E402
 
 __all__ = [
@@ -66,6 +81,13 @@ __all__ = [
     "LinearIsotropicPlaneStrain",
     "NeoHookean",
     "material_from_inp",
+    "ElementBlock",
+    "MultiBlockSystem",
+    "system_from_model",
+    "BeamModel",
+    "BeamSection",
+    "read_beam_inp",
+    "solve_beam",
     "meshgen",
     "__version__",
 ]

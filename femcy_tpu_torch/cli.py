@@ -13,11 +13,13 @@ self-contained HTML viewer.
 The model runs on the card unless ``--platform cpu`` is given (``gpu`` and
 ``cuda`` name the card too); without a card the CUDA default raises, as
 ``FEMSystem`` does.  Solution tensors come to the host once, after the
-solve.  Models that mix B31 beams and continuum elements, pure B31 models
-and multi-block models (several element types or materials) are detected
-as femcy_tpu detects them and raise ``NotImplementedError`` before any
-system is built; ``--dynamic-rescue`` raises through ``SolverConfig``.
-With ``-v`` the wall of each stage is logged.
+solve.  Models are routed as femcy_tpu routes them: several element types
+or materials to ``MultiBlockSystem`` (per-block stresses, mixed-cell VTK,
+HTML and PNG), pure B31 models to ``solve_beam`` (deflection, rotation and
+section forces), each printing femcy_tpu's lines for that route; models
+that mix B31 beams and continuum elements raise ``NotImplementedError``
+before any system is built, as ``--dynamic-rescue`` does through
+``SolverConfig``.  With ``-v`` the wall of each stage is logged.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ logger = logging.getLogger("femcy_tpu_torch.cli")
 STRESS_IDS_2D = {0: (0, 0), 1: (1, 1), 2: (0, 1)}
 STRESS_IDS_3D = {0: (0, 0), 1: (1, 1), 2: (2, 2), 3: (0, 1), 4: (2, 0), 5: (1, 2)}
 
-_SLICE_H = "the multi-block, beam and mixed systems (ROADMAP slice H)"
+_MIXED = "the mixed beam + continuum system (ROADMAP slice H, second half)"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -160,10 +162,11 @@ def _stage(name: str):
     logger.info("stage %s: %.3f s", name, time.perf_counter() - t)
 
 
-def _is_multiblock(path: str) -> bool:
-    """The routing rule of femcy_tpu's CLI: more than one element block or
-    material by ``read_inp_multi`` (and every block's material resolvable);
-    any failure to read it so leaves the model to ``read_inp``."""
+def _read_multiblock(path: str):
+    """The routing rule of femcy_tpu's CLI: the ``read_inp_multi`` model
+    when it has more than one element block or material (and every block's
+    material resolves), else None; any failure to read it so leaves the
+    model to ``read_inp``."""
     from femcy_tpu_torch.io.inp import read_inp_multi
 
     try:
@@ -177,8 +180,8 @@ def _is_multiblock(path: str) -> bool:
     except Exception:
         # odd single-type layouts (or unmapped materials): let read_inp
         # decide -- it keeps the reference's first-material quirk
-        is_multi = False
-    return is_multi
+        return None
+    return block_model if is_multi else None
 
 
 def main(argv=None) -> int:
@@ -210,20 +213,22 @@ def main(argv=None) -> int:
             types = _element_types(fh.read())
         if "B31" in types and len(types) > 1:
             raise NotImplementedError(
-                "mixed B31 + continuum models need " + _SLICE_H
+                "mixed B31 + continuum models need " + _MIXED
                 + ", not yet ported to femcy_tpu_torch"
             )
+        beam_model = block_model = None
         if types == {"B31"}:
-            raise NotImplementedError(
-                "B31 beam models need " + _SLICE_H
-                + ", not yet ported to femcy_tpu_torch"
-            )
-        if _is_multiblock(args.inp):
-            raise NotImplementedError(
-                "models mixing element types or materials need " + _SLICE_H
-                + ", not yet ported to femcy_tpu_torch"
-            )
-        inp = read_inp(args.inp)
+            from femcy_tpu_torch.beam import read_beam_inp
+
+            beam_model = read_beam_inp(args.inp)
+        else:
+            block_model = _read_multiblock(args.inp)
+            if block_model is None:
+                inp = read_inp(args.inp)
+    if beam_model is not None:
+        return _main_beam(args, beam_model, t0, device)
+    if block_model is not None:
+        return _main_multiblock(args, block_model, t0, device)
 
     with _stage("setup"):
         material = material_from_inp(
@@ -328,6 +333,193 @@ def main(argv=None) -> int:
             export_html(mesh, dof, nodal_mises, args.save_html)
         print(f"wrote {args.save_html}")
     return 0 if report.success else 1
+
+
+def _main_multiblock(args, model, t0: float, device) -> int:
+    """The route of multi-element-type / multi-material models, femcy_tpu's
+    ``_main_multiblock``: the single-block observables over per-block
+    stress recovery, and mixed-cell exports; linear and geometric-
+    nonlinear.  Its SolverConfig is femcy_tpu's for this route."""
+    from femcy_tpu_torch import SolverConfig
+    from femcy_tpu_torch.multiblock import system_from_model
+
+    if args.stabilize > 0.0:
+        print(
+            "warning: --stabilize is only supported for single-block "
+            "models; ignoring it for this multi-block analysis"
+        )
+    config = SolverConfig(
+        linear_solver=args.solver,
+        cg_eps=args.cg_eps,
+        tangent=args.tangent,
+        dynamic_rescue=args.dynamic_rescue,
+        verbose=args.verbose,
+    )
+    with _stage("setup"):
+        system = system_from_model(model, config, device=device)
+    blocks_txt = ", ".join(
+        f"{blk.elements.shape[0]} {etype}[{blk.name or bi}]"
+        for bi, ((etype, _, _), blk) in enumerate(
+            zip(model.element_blocks, system.blocks)
+        )
+    )
+    print(
+        f"model: {blocks_txt}; {model.nodes.shape[0]} nodes, "
+        f"{system.n_dof} dofs, {len(model.materials)} material(s), "
+        f"geometric_nonlinear={model.geometric_nonlinear}"
+    )
+    n_blocks = len(system.blocks)
+    frames = []
+
+    def _frame_cb(sys_, record):
+        import os as _os
+
+        from femcy_tpu_torch.io.export import export_png_blocks
+
+        _os.makedirs(args.save_frames, exist_ok=True)
+        meshes_f = [sys_.block_mesh(bi) for bi in range(n_blocks)]
+        fname = _os.path.join(
+            args.save_frames, f"frame_{len(frames):04d}.png"
+        )
+        nodal_f = [sys_.extrapolate_block(bi, sys_.block_stress(bi)[2])
+                   .cpu().numpy() for bi in range(n_blocks)]
+        export_png_blocks(
+            meshes_f, sys_.dof.cpu().numpy(), nodal_f, fname,
+            title=f"t={record.time:.4f}", cmap=args.cmap,
+        )
+        frames.append(fname)
+
+    report = None
+    with _stage("solve"):
+        if model.geometric_nonlinear:
+            report = system.solve_nonlinear(
+                model, on_increment=_frame_cb if args.save_frames else None
+            )
+        else:
+            system.solve_model(model)
+    if report is not None:
+        print(
+            f"solve: {'converged' if report.success else 'FAILED'} in "
+            f"{report.n_increments} increment(s), {report.wall_time:.2f}s "
+            f"(total {time.time() - t0:.2f}s incl. compile)"
+        )
+        if not report.success:
+            print(f"  {report.message}", file=sys.stderr)
+    else:
+        print(
+            "solve: converged in 1 increment(s) "
+            f"(total {time.time() - t0:.2f}s incl. compile)"
+        )
+
+    with _stage("post"):
+        dof = system.dof.cpu().numpy()
+        gp_mises, nodal_mises, comp_max, nodal_comp_max = [], [], [], []
+        if args.stress is not None:
+            ids = STRESS_IDS_2D if model.dm == 2 else STRESS_IDS_3D
+            i, j = ids[args.stress]
+        for bi in range(n_blocks):
+            _, stress, mises = system.block_stress(bi)
+            gp_mises.append(mises.cpu().numpy())
+            nodal_mises.append(system.extrapolate_block(bi, mises)
+                               .cpu().numpy())
+            if args.stress is not None:
+                comp = stress[:, :, i, j]
+                comp_max.append(float(comp.abs().max()))
+                nodal_comp_max.append(
+                    float(system.extrapolate_block(bi, comp).max()))
+            del stress
+        energy = system.elastic_energy()
+    print(f"total elastic energy = {energy:.6g}")
+    print(
+        "max Mises stress at integration points = "
+        f"{max(m.max() for m in gp_mises):.6g}"
+    )
+    print(
+        "max nodal (extrapolated) Mises stress = "
+        f"{max(m.max() for m in nodal_mises):.6g}"
+    )
+    print(f"max |dof| (displacement) = {np.abs(dof).max():.6g}")
+    if args.stress is not None:
+        print(f"max |stress[{i}{j}]| at integration points = "
+              f"{max(comp_max):.6g}")
+        print(f"max nodal stress[{i}{j}] = {max(nodal_comp_max):.6g}")
+
+    if (args.save_frames or args.save_gif) and not model.geometric_nonlinear:
+        print(
+            "frames/GIF apply to nonlinear increments; linear multi-block "
+            "solves have one state",
+            file=sys.stderr,
+        )
+    if args.save_gif and frames:
+        from femcy_tpu_torch.utils.gif import frames_to_gif
+
+        with _stage("gif"):
+            frames_to_gif(frames, args.save_gif)
+        print(f"wrote {args.save_gif} ({len(frames)} frames)")
+    meshes = [system.block_mesh(bi) for bi in range(n_blocks)]
+    if args.save_png:
+        from femcy_tpu_torch.io.export import export_png_blocks
+
+        with _stage("png"):
+            export_png_blocks(meshes, dof, nodal_mises, args.save_png,
+                              title="Mises stress", cmap=args.cmap)
+        print(f"wrote {args.save_png}")
+    if args.save_vtk:
+        from femcy_tpu_torch.io.export import (
+            average_nodal_field_blocks,
+            export_vtk_blocks,
+        )
+
+        with _stage("vtk"):
+            export_vtk_blocks(
+                system.nodes,
+                [(blk.elements, blk.element.name) for blk in system.blocks],
+                args.save_vtk,
+                dof=dof,
+                point_data={
+                    "mises": average_nodal_field_blocks(
+                        model.nodes.shape[0], meshes, nodal_mises
+                    )
+                },
+                cell_data={
+                    "mises_max_gp": np.concatenate(
+                        [m.max(axis=1) for m in gp_mises]
+                    )
+                },
+            )
+        print(f"wrote {args.save_vtk}")
+    if args.save_html:
+        from femcy_tpu_torch.io.html import export_html_blocks
+
+        with _stage("html"):
+            export_html_blocks(meshes, dof, nodal_mises, args.save_html)
+        print(f"wrote {args.save_html}")
+    return 0 if report is None or report.success else 1
+
+
+def _main_beam(args, model, t0: float, device) -> int:
+    """The route of B31 beam lattices, femcy_tpu's ``_main_beam``: max
+    deflection and rotation and the peak section forces (the continuum
+    routes' stress, energy and Mises do not apply to beam theory)."""
+    from femcy_tpu_torch.beam import solve_beam
+
+    print(
+        f"model: {model.elements.shape[0]} B31 elements, "
+        f"{model.nodes.shape[0]} nodes, {model.n_dof} dofs (6/node)"
+    )
+    with _stage("solve"):
+        res = solve_beam(model, device=device)
+    dt = time.time() - t0
+    defl = np.linalg.norm(res.u[:, :3], axis=1)
+    rot = np.linalg.norm(res.u[:, 3:], axis=1)
+    fe = res.end_forces
+    print(f"max deflection |u| = {defl.max():.6e} (node {defl.argmax()})")
+    print(f"max rotation |theta| = {rot.max():.6e} (node {rot.argmax()})")
+    print(f"max axial force N = {np.abs(fe[:, [0, 6]]).max():.6e}")
+    print(f"max bending moment = {np.abs(fe[:, [4, 5, 10, 11]]).max():.6e}")
+    print(f"max torque = {np.abs(fe[:, [3, 9]]).max():.6e}")
+    print(f"solve time: {dt:.2f}s")
+    return 0
 
 
 if __name__ == "__main__":

@@ -15,9 +15,11 @@ import numpy as np
 import torch
 
 from femcy_tpu_torch import materials
+from femcy_tpu_torch.beam import BeamModel, BeamSection
 from femcy_tpu_torch.elements import ELEMENT_REGISTRY
 from femcy_tpu_torch.io.inp import DirichletBC, InpModel, NeumannBC
 from femcy_tpu_torch.mesh import FEMesh
+from femcy_tpu_torch.multiblock import ElementBlock
 from femcy_tpu_torch.solvers.amg import AlgebraicMultigrid, _device_levels
 from femcy_tpu_torch.solvers.bell import BellPlan
 from femcy_tpu_torch.solvers.dia import DIAPattern
@@ -149,3 +151,34 @@ def amg_from(ref_amg, device="cpu", dtype=torch.float64) -> AlgebraicMultigrid:
 def dof_from(dof, device="cpu", dtype=torch.float64) -> torch.Tensor:
     """A dof vector given as numpy (e.g. ``np.asarray(system.dof)``)."""
     return torch.tensor(np.asarray(dof), dtype=dtype, device=device)
+
+
+def element_block_from(ref_block):
+    """ElementBlock with a copy of the reference block's connectivity, the
+    port's element of the same name and material of the same fields."""
+    return ElementBlock(
+        elements=np.array(ref_block.elements),
+        element=element_from(ref_block.element),
+        material=material_from(ref_block.material),
+        name=ref_block.name,
+    )
+
+
+def blocks_from(ref_system):
+    """The port's ElementBlocks of a reference MultiBlockSystem, in order."""
+    return [element_block_from(b) for b in ref_system.blocks]
+
+
+def beam_model_from(ref_model):
+    """BeamModel with the reference model's arrays, section and lists."""
+    sec = ref_model.section
+    return BeamModel(
+        nodes=np.array(ref_model.nodes),
+        elements=np.array(ref_model.elements),
+        section=BeamSection(**{f.name: getattr(sec, f.name)
+                               for f in dataclasses.fields(BeamSection)}),
+        E=ref_model.E,
+        nu=ref_model.nu,
+        dirichlet=[tuple(d) for d in ref_model.dirichlet],
+        loads=[tuple(d) for d in ref_model.loads],
+    )

@@ -238,6 +238,23 @@ def run_newton(dof0, evaluate, lin_solve, finish, cfg, ini_residual):
     return True, newton_loop, residual_val, ini_residual
 
 
+def warn_cg_cap(config: SolverConfig, n_dof: int, iters: int, rmax, b):
+    """Warn when a CG exited on its iteration cap unconverged: the
+    returned solution is silently truncated otherwise."""
+    cap = config.cg_max_iters if config.cg_max_iters > 0 else n_dof
+    if iters < cap:
+        return
+    rmax0 = float(b.abs().max())
+    if rmax0 > 0.0 and float(rmax) >= config.cg_eps * rmax0:
+        logger.warning(
+            "CG exited at the iteration cap (%d) UNCONVERGED: "
+            "||r||_inf=%.3e >= eps*||r0||_inf=%.3e -- the solution is "
+            "truncated; raise cg_max_iters, loosen cg_eps, or use a "
+            "stronger preconditioner",
+            cap, float(rmax), config.cg_eps * rmax0,
+        )
+
+
 class FEMSystem:
     """Assemble and solve one body with one material.
 
@@ -610,7 +627,7 @@ class FEMSystem:
         finished CG solve; returns ``x``."""
         if self.config.verbose:
             logger.info("%s: %d iters, ||r||_inf=%.3e", what, iters, float(rmax))
-        self._warn_cg_cap(iters, rmax, b)
+        warn_cg_cap(self.config, self.mesh.n_dof, iters, rmax, b)
         self._last_cg_iters = iters
         self._cg_iters_log.append(iters)
         return x
@@ -730,26 +747,6 @@ class FEMSystem:
                         [lv.n_dof for lv in self._amg.levels],
                         self._amg.complexity, host_s,
                         self._amg.setup_seconds)
-
-    def _warn_cg_cap(self, iters, rmax, b):
-        """Warn when the CG exited on its iteration cap unconverged: the
-        returned solution is silently truncated otherwise."""
-        cap = (
-            self.config.cg_max_iters
-            if self.config.cg_max_iters > 0
-            else self.mesh.n_dof
-        )
-        if iters < cap:
-            return
-        rmax0 = float(b.abs().max())
-        if rmax0 > 0.0 and float(rmax) >= self.config.cg_eps * rmax0:
-            logger.warning(
-                "CG exited at the iteration cap (%d) UNCONVERGED: "
-                "||r||_inf=%.3e >= eps*||r0||_inf=%.3e -- the solution is "
-                "truncated; raise cg_max_iters, loosen cg_eps, or use a "
-                "stronger preconditioner",
-                cap, float(rmax), self.config.cg_eps * rmax0,
-            )
 
     # ------------------------------------------------------------------ #
     # public API

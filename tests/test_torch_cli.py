@@ -6,11 +6,13 @@ CLI against CLI: both packages' ``main([... "--platform", "cpu"])`` on the
 same inline Abaqus models (a CPS3 membrane under a *Dsload, a C3D4 box on
 ELL by the CG, a C3D8 box on the general DIA with a 3-D PNG, a geometric-
 nonlinear CPS4 cantilever with frames, a GIF and checkpoints, the same
-cantilever stabilized).  Tolerances: every printed observable within 1e-6
-relative after parsing (they are printed with 6 significant digits), the
-model line, increment counts and exit codes equal; the VTK numeric blocks
-within 1e-8 of each block's largest value; the HTML payload's triangles
-and positions equal and its colour range within 1e-9; the PNGs equal in
+cantilever stabilized; a two-material CPS4 model and a B31 beam, through
+the multi-block and beam routes, line for line).  Tolerances: every
+printed observable within 1e-6 relative after parsing (they are printed
+with 6 significant digits), the model line, increment counts and exit
+codes equal; the VTK numeric blocks within 1e-8 of each block's largest
+value; the HTML payload's triangles and positions equal and its colour
+range within 1e-9; the PNGs equal in
 size with at most 0.1% of pixels differing; frame counts equal and the
 checkpoint dof within 1e-10 relative.  In float32 (a subprocess with
 FEMCY_TPU_X64=0) the observables hold within 1e-3.
@@ -318,7 +320,7 @@ def test_float32_observables(tmp_path):
 
 
 # --------------------------------------------------------------------------- #
-# the routes and flags that raise
+# the other model kinds, and the routes and flags that raise
 # --------------------------------------------------------------------------- #
 _TWO_MATERIALS = """*Heading
 two materials by *Solid Section
@@ -335,6 +337,8 @@ two materials by *Solid Section
 2, 2, 3, 6, 5
 *Nset, nset=fix
 1, 4
+*Nset, nset=pull
+3, 6
 *Solid Section, elset=soft, material=rubber
 *Solid Section, elset=hard, material=steel
 *Material, name=rubber
@@ -348,6 +352,7 @@ two materials by *Solid Section
 1., 1., 1e-05, 1.
 *Boundary
 fix, 1, 2
+pull, 1, 1, 0.01
 *End Step
 """
 
@@ -360,6 +365,8 @@ a B31 beam
 1, 1, 2
 *Nset, nset=fix
 1
+*Beam Section, elset=beam, material=m, section=RECT
+0.05, 0.08
 *Material, name=m
 *Elastic
 1000., 0.3
@@ -368,8 +375,30 @@ a B31 beam
 1., 1., 1e-05, 1.
 *Boundary
 fix, 1, 6
+*Cload
+2, 2, 0.001
 *End Step
 """
+
+
+def _same_lines(t_out, j_out):
+    """The same lines in the same order: equal but for the numbers of
+    'label = value' lines (within 1e-6 relative, the words after them
+    equal) and the walls of the solve lines."""
+    t_lines, j_lines = t_out.splitlines(), j_out.splitlines()
+    assert len(t_lines) == len(j_lines)
+    for t, j in zip(t_lines, j_lines):
+        if t.startswith(("solve:", "solve time:")):
+            assert t.split("(")[0].split(":")[0] == j.split("(")[0].split(":")[0]
+            assert re.sub(r"[\d.]+s", "", t) == re.sub(r"[\d.]+s", "", j)
+        elif " = " in j:
+            (t_key, t_val), (j_key, j_val) = t.split(" = "), j.split(" = ")
+            assert t_key == j_key
+            t_num, j_num = float(t_val.split()[0]), float(j_val.split()[0])
+            assert abs(t_num - j_num) <= OBS_TOL * max(abs(j_num), 1e-30), j
+            assert t_val.split()[1:] == j_val.split()[1:]
+        else:
+            assert t == j
 
 
 @pytest.mark.parametrize("text", [
@@ -379,11 +408,25 @@ fix, 1, 6
                   "2, 1, 2, 3, 4\n*Nset").replace(
         "2, 1., 0., 0.\n", "2, 1., 0., 0.\n3, 0., 1., 0.\n4, 0., 0., 1.\n"),
 ], ids=["two materials", "B31", "B31 + C3D4"])
-def test_other_model_kinds_raise_naming_slice_h(tmp_path, text):
+def test_other_model_kinds_raise_naming_slice_h(tmp_path, capsys, text):
+    """The model kinds of ROADMAP slice H: a two-material model (the
+    multi-block route) and a B31 beam now solve, and print femcy_tpu.cli's
+    lines, line for line; B31 + continuum still raises, naming the mixed
+    system, the second half of the slice."""
     path = tmp_path / "model.inp"
     path.write_text(text)
-    with pytest.raises(NotImplementedError, match="ROADMAP slice H"):
-        tcli.main([str(path), "--platform", "cpu"])
+    argv = [str(path), "--platform", "cpu"]
+    if "C3D4" in text:
+        with pytest.raises(NotImplementedError,
+                           match=r"mixed beam \+ continuum system \(ROADMAP "
+                                 r"slice H, second half\)"):
+            tcli.main(argv)
+        return
+    j_rc, j_out = _run(jcli.main, argv, capsys)
+    t_rc, t_out = _run(tcli.main, argv, capsys)
+    assert t_rc == j_rc == 0
+    assert t_out.splitlines()[0] == j_out.splitlines()[0]
+    _same_lines(t_out, j_out)
 
 
 def test_dynamic_rescue_raises_naming_slice_g(tmp_path):

@@ -38,6 +38,7 @@ def test_imports_and_solves_without_jax():
         from femcy_tpu_torch.utils import gif, timing
         from femcy_tpu_torch.solvers import amg, bell, cg, multigrid
         from femcy_tpu_torch import assembly_host, topology
+        from femcy_tpu_torch import beam, multiblock
 
         mesh = T.meshgen.box_tets(3, 2, 2)
         bottom = np.nonzero(mesh.nodes[:, 2] < 1e-9)[0]
@@ -97,6 +98,34 @@ def test_imports_and_solves_without_jax():
                                 [1000.0, 0.3], True, tinp.time_incs)
             rep = n.solve(tinp, user_dirichlet=hook)
             assert rep.success and rep.increments[0].newton_iters > 0
+        # a two-block plate (CPS4 + CPS3, two materials) by the CG, and a
+        # beam
+        nodes = np.array([[i * 0.5, j * 0.5] for i in range(5)
+                          for j in range(3)])
+        cells = [(3 * i + j, 3 * i + j + 3, 3 * i + j + 4, 3 * i + j + 1)
+                 for i in range(4) for j in range(2)]
+        quads = np.array(cells[:4], np.int32)
+        tris = np.array([t for a, b, c, d in cells[4:]
+                         for t in ((a, b, c), (a, c, d))], np.int32)
+        mb = T.MultiBlockSystem(nodes, [
+            T.ElementBlock(quads, T.meshgen.rect_quads(1, 1).element,
+                           T.LinearIsotropicPlaneStress(100.0, 0.3)),
+            T.ElementBlock(tris, T.meshgen.rect_tris(1, 1).element,
+                           T.LinearIsotropicPlaneStress(300.0, 0.3))],
+            T.SolverConfig(linear_solver="cg"), device="cpu")
+        x = nodes[:, 0]
+        fixed = np.zeros(mb.n_dof, bool)
+        fixed[np.nonzero(x < 1e-9)[0][:, None] * 2 + np.arange(2)] = True
+        rhs = np.zeros(mb.n_dof)
+        rhs[np.nonzero(x > 2 - 1e-9)[0] * 2] = 1.0
+        dof = mb.solve(rhs, fixed, np.zeros(mb.n_dof)).numpy()
+        assert mb._last_cg_iters > 0 and np.isfinite(dof).all()
+        assert dof[np.nonzero(x > 2 - 1e-9)[0] * 2].min() > 0
+        cant = T.BeamModel(np.array([[0., 0, 0], [1, 0, 0]]),
+                           np.array([[0, 1]], np.int32),
+                           T.BeamSection.circ(0.1), 1000.0, 0.3,
+                           [(0, d, 0.0) for d in range(6)], [(1, 1, 1.0)])
+        assert T.solve_beam(cant, device="cpu").u[1, 1] > 0
         assert not any(m == "jax" or m.startswith(("jax.", "femcy_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")
@@ -189,25 +218,43 @@ def test_cuda_device_raises_without_a_card():
                   device="cuda")
 
 
-@pytest.mark.parametrize("entry", ["FEMSystem", "StructuredMultigrid"])
+@pytest.mark.parametrize("entry", ["FEMSystem", "StructuredMultigrid",
+                                   "MultiBlockSystem", "solve_beam"])
 def test_default_device_is_the_card(monkeypatch, entry):
-    """Both entry points default to CUDA: with no card that default raises
-    as an explicit device="cuda" does, and device="cpu" still builds."""
+    """Every entry point defaults to CUDA: with no card that default raises
+    as an explicit device="cuda" does, and device="cpu" still runs."""
+    from femcy_tpu_torch import BeamModel, BeamSection, ElementBlock
+    from femcy_tpu_torch import MultiBlockSystem, solve_beam
     from femcy_tpu_torch.solvers.multigrid import StructuredMultigrid
 
     mesh = meshgen.box_tets(2, 2, 2)
     mat = LinearIsotropic(1000.0, 0.3)
     if entry == "FEMSystem":
         def build(**kw):
-            return FEMSystem(mesh, mat, **kw)
-    else:
+            return FEMSystem(mesh, mat, **kw).device
+    elif entry == "StructuredMultigrid":
         def build(**kw):
             return StructuredMultigrid(mesh, mat, np.zeros(mesh.n_dof, bool),
-                                       coarsest_max_dof=10**6, **kw)
+                                       coarsest_max_dof=10**6, **kw).device
+    elif entry == "MultiBlockSystem":
+        def build(**kw):
+            half = mesh.elements.shape[0] // 2
+            return MultiBlockSystem(mesh.nodes, [
+                ElementBlock(mesh.elements[:half], mesh.element, mat),
+                ElementBlock(mesh.elements[half:], mesh.element, mat)],
+                **kw).device
+    else:
+        def build(**kw):
+            beam = BeamModel(np.array([[0.0, 0, 0], [1, 0, 0]]),
+                             np.array([[0, 1]], np.int32),
+                             BeamSection.circ(0.1), 1000.0, 0.3,
+                             [(0, d, 0.0) for d in range(6)], [(1, 1, 1.0)])
+            solve_beam(beam, **kw)
+            return torch.device(kw["device"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="never falls back to the CPU"):
         build()
-    assert build(device="cpu").device == torch.device("cpu")
+    assert build(device="cpu") == torch.device("cpu")
 
 
 def test_build_raises_without_nvcc(tmp_path, monkeypatch):
