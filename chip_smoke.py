@@ -324,6 +324,8 @@ EXPECTED_CLI_INCREMENTS = {"CLI nonlinear": 4, "CLI nonlinear, stabilized": 4,
 #: constants (mu = 2 C1 and lambda = 2 D1 those of E 1000, nu 0.3); the
 #: small nlgeom model of the CLI phase
 MB_N, MB_C1, MB_D1, MB_NL_N = 48, 192.3, 288.5, 6
+#: the slabs of the many-section assembly timing (phase 18)
+MB_SLABS = 10
 #: bays per side of the B31 lattice: 4,913 nodes, 29,478 dofs, 13,872
 #: members, a 6.95 GB dense f64 operator
 BEAM_N = 16
@@ -2521,14 +2523,48 @@ def multiblock_kernel_checks(torch, system, label: str):
           flush=True)
 
 
+def m2_union_check(torch, system, values_bc, label: str):
+    """M2 on the union pattern's eliminated operator, in float32 and
+    float64, against the plain ``ell_spmv`` run on the CPU on the same
+    values, and bit-identical on a rerun."""
+    from femcy_tpu_torch.kernels import ell_spmv as k_ell
+    from femcy_tpu_torch.solvers.cg import ell_spmv
+
+    splan = k_ell.spmv_plan(system.pattern, DEVICE)
+    colidx = system._arrs["colidx"].cpu()
+    x_np = np.random.default_rng(12).standard_normal(system.n_dof)
+    rels = []
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[1]
+        vals = values_bc.to(dtype)
+        x = torch.as_tensor(x_np, dtype=dtype, device=DEVICE)
+        vt = k_ell.prep_values(splan, vals)
+        y = k_ell.spmv(splan, vt, x)
+        y2 = k_ell.spmv(splan, vt, x)
+        torch.cuda.synchronize()
+        check(torch.equal(y, y2), f"M2 {label} {name}: rerun not "
+              "bit-identical")
+        y_p = ell_spmv(vals.cpu(), colidx, x.cpu())
+        rel = float((y.cpu() - y_p).abs().max() / y_p.abs().max())
+        check(rel <= TOL[name], f"M2 {label} {name}: {rel:.3e} vs plain")
+        rels.append(f"{name} rel {rel:.2e}")
+        del vals, vt
+    print(f"M2 kernel checks, {label} (union ELL width "
+          f"{system.pattern.width}): " + "; ".join(rels)
+          + " vs the plain ell_spmv on the CPU (tol 1e-5 in float32, 1e-12 "
+          "in float64), bit-identical reruns", flush=True)
+
+
 def multiblock_solve(torch, card, system, label: str, bcs):
     """One linear solve of ``system`` on the card, every launch counter
     zeroed just before and read just after; checks success, M1 once per
     block, the solver's SpMV (M2 once per CG iteration, or M3 as the
     V-cycle predicts), no other kernel, ||A x - b||_inf <= cg_eps *
     ||b||_inf with the plain ELL SpMV, finite stresses, Mises and energy;
-    then a warm solve with the same iterations.  Returns (launches, CG
-    iterations)."""
+    then the solver's kernel against its plain version on this system's
+    eliminated operator (M2 on the union pattern, or M3 on every operand
+    of the hierarchy), and a warm solve with the same iterations.  Returns
+    (launches, CG iterations)."""
     from femcy_tpu_torch.solvers.cg import ell_spmv
 
     rhs, fixed, sval = bcs
@@ -2561,9 +2597,13 @@ def multiblock_solve(torch, card, system, label: str, bcs):
     res = float((ell_spmv(values_bc, system._arrs["colidx"], system.dof)
                  - b).abs().max())
     bmax = float(b.abs().max())
-    del values_bc, b
     check(res <= system.config.cg_eps * bmax,
           f"{label}: ||Ax-b||_inf {res:.3e} > cg_eps*||b||_inf")
+    if amg:
+        bell_checks(torch, label, system, values_bc)
+    else:
+        m2_union_check(torch, system, values_bc, label)
+    del values_bc, b
     max_mises = 0.0
     for bi, blk in enumerate(system.blocks):
         strain, stress, mises = system.block_stress(bi)
@@ -2618,6 +2658,68 @@ def multiblock_setup(torch, card, label: str, nodes, blocks, **config):
     return system
 
 
+def assembly_ms(torch, system, bcs, reps: int = 5):
+    """Median wall (ms, synchronised) of ``system``'s warm assembly + linear
+    Dirichlet elimination, its M1 launches in one of them, and the peak
+    memory (GB) that one assembly adds to what is allocated before it."""
+    args = [torch.as_tensor(a, device=DEVICE) for a in bcs]
+    system._linear_system(*args)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        system._linear_system(*args)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    out = system._linear_system(*args)
+    torch.cuda.synchronize()
+    m1 = read_launches()["ell_scatter"]
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    check(all(bool(torch.isfinite(t_).all()) for t_ in out),
+          "many-block assembly not finite")
+    del out
+    return float(np.median(walls)), m1, peak
+
+
+def many_block_timing(torch, card, mesh, two, bcs):
+    """The cost of many sections: the ELL slice's mesh cut into
+    ``MB_SLABS`` slabs by centroid z, one LinearIsotropic each (E from
+    1000 to 4000), beside the two-block ``two`` on the same mesh and
+    loads: setup, the warm assembly + Dirichlet wall, M1 launches (one a
+    block, gated) and the memory an assembly adds."""
+    from femcy_tpu_torch import ElementBlock, LinearIsotropic
+    from femcy_tpu_torch import MultiBlockSystem, SolverConfig
+
+    z = mesh.nodes[mesh.elements].mean(axis=1)[:, 2]
+    slab = np.minimum((z * MB_SLABS).astype(np.int64), MB_SLABS - 1)
+    blocks = [ElementBlock(mesh.elements[slab == i], mesh.element,
+                           LinearIsotropic(1000.0 + 3000.0 * i / (MB_SLABS - 1),
+                                           0.3), f"slab{i}")
+              for i in range(MB_SLABS)]
+    t = time.perf_counter()
+    many = MultiBlockSystem(mesh.nodes, blocks, SolverConfig(
+        linear_solver="cg"), device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    check(np.array_equal(many.pattern.colidx, two.pattern.colidx),
+          "the slabs' union pattern is not the two blocks' one")
+    ms2, m1_2, peak2 = assembly_ms(torch, two, bcs)
+    ms_n, m1_n, peak_n = assembly_ms(torch, many, bcs)
+    check(m1_2 == 2 and m1_n == MB_SLABS, f"many blocks: M1 launched "
+          f"{m1_2} and {m1_n} times for 2 and {MB_SLABS} blocks")
+    print(f"many blocks on {card}: {MB_SLABS} slabs of {mesh.n_elements} "
+          f"C3D4, MultiBlockSystem init {init_s:.3f} s "
+          f"({', '.join(f'{k} {v:.3f} s' for k, v in many._init_seconds.items())}); "
+          f"warm assembly+bc {ms_n:.3f} ms against {ms2:.3f} ms for 2 blocks "
+          f"(median of 5; M1 {m1_n} and {m1_2} launches); memory an "
+          f"assembly adds {peak_n:.3f} GB against {peak2:.3f} GB",
+          flush=True)
+    del many
+
+
 def two_material_run(torch, card):
     """Phase 18: the ELL slice's mesh in two materials through
     MultiBlockSystem, Jacobi CG (M1 x 2 + M2), then on the same system
@@ -2637,6 +2739,8 @@ def two_material_run(torch, card):
     system.config = SolverConfig(linear_solver="cg", preconditioner="amg")
     out["two-material AMG"] = multiblock_solve(
         torch, card, system, "two-material AMG", bcs)
+    system._amg = None
+    many_block_timing(torch, card, mesh, system, bcs)
     del system
     torch.cuda.empty_cache()
     print(f"two-material phase wall {time.perf_counter() - t_phase:.1f} s",

@@ -97,8 +97,9 @@ def build_parser() -> argparse.ArgumentParser:
         choices=["jacobi", "block_jacobi", "multigrid", "amg"],
         help="CG preconditioner (multigrid needs a structured box_tets mesh, "
         "so it applies to generated meshes, not .inp models; amg, the "
-        "smoothed-aggregation algebraic multigrid, takes any mesh on the "
-        "ELL layout)",
+        "smoothed-aggregation algebraic multigrid, takes any single-block "
+        "mesh on the ELL layout; multi-block and B31 models ignore it, "
+        "with a warning)",
     )
     p.add_argument(
         "--stress",
@@ -335,6 +336,17 @@ def main(argv=None) -> int:
     return 0 if report.success else 1
 
 
+def _warn_amg_ignored(args, route: str) -> None:
+    """``--preconditioner amg`` is the port's own choice; femcy_tpu's
+    multi-block and B31 routes, which these twin, take no preconditioner
+    from the command line, so it is dropped there, and said so."""
+    if args.preconditioner == "amg":
+        print(
+            "warning: --preconditioner amg is only supported for "
+            f"single-block models; ignoring it for this {route} analysis"
+        )
+
+
 def _main_multiblock(args, model, t0: float, device) -> int:
     """The route of multi-element-type / multi-material models, femcy_tpu's
     ``_main_multiblock``: the single-block observables over per-block
@@ -348,6 +360,7 @@ def _main_multiblock(args, model, t0: float, device) -> int:
             "warning: --stabilize is only supported for single-block "
             "models; ignoring it for this multi-block analysis"
         )
+    _warn_amg_ignored(args, "multi-block")
     config = SolverConfig(
         linear_solver=args.solver,
         cg_eps=args.cg_eps,
@@ -503,6 +516,7 @@ def _main_beam(args, model, t0: float, device) -> int:
     routes' stress, energy and Mises do not apply to beam theory)."""
     from femcy_tpu_torch.beam import solve_beam
 
+    _warn_amg_ignored(args, "B31 beam")
     print(
         f"model: {model.elements.shape[0]} B31 elements, "
         f"{model.nodes.shape[0]} nodes, {model.n_dof} dofs (6/node)"

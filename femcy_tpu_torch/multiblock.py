@@ -63,13 +63,13 @@ from femcy_tpu_torch.solvers.bell import build_bell_plan
 from femcy_tpu_torch.solvers.cg import pcg_solve
 from femcy_tpu_torch.solvers.direct import direct_solve
 from femcy_tpu_torch.system import (
-    IncrementRecord,
     SolveReport,
     _rms,
+    cg_done,
     default_dtype,
     mises_stress,
+    run_increments,
     run_newton,
-    warn_cg_cap,
 )
 from femcy_tpu_torch.topology import ELLPattern, colidx_valid_mask
 from femcy_tpu_torch.utils.device import resolve_device
@@ -315,6 +315,7 @@ class MultiBlockSystem:
         self._amg_fixed_key: Optional[bytes] = None
         self._amg_fixed_obj = None
         self._amg_raw_csr = None  # cached no-BC f64 host operator
+        self._bell_plan = None  # M3's host block plan of the union pattern
         self._bell_fine: Optional[k_bell.FinePlan] = None
         #: host walls (seconds) of the last hierarchy build, by phase
         self._amg_host_seconds: dict = {}
@@ -397,19 +398,11 @@ class MultiBlockSystem:
             x, iters, rmax = self._amg.pcg_solve(
                 b, lambda v: k_bell.spmv(fine, v), eps=cfg.cg_eps,
                 max_iters=max_iters)
-            return self._cg_done("AMG-CG", x, iters, rmax, b)
+            return cg_done(self, self.n_dof, "AMG-CG", x, iters, rmax, b)
         x, iters, rmax = pcg_solve(
             values, self._arrs["colidx"], self._arrs["diag_slot"], b,
             eps=cfg.cg_eps, max_iters=cfg.cg_max_iters, spmv=self._spmv)
-        return self._cg_done("CG", x, iters, rmax, b)
-
-    def _cg_done(self, what: str, x, iters: int, rmax, b):
-        if self.config.verbose:
-            logger.info("%s: %d iters, ||r||_inf=%.3e", what, iters, float(rmax))
-        warn_cg_cap(self.config, self.n_dof, iters, rmax, b)
-        self._last_cg_iters = iters
-        self._cg_iters_log.append(iters)
-        return x
+        return cg_done(self, self.n_dof, "CG", x, iters, rmax, b)
 
     def _ensure_amg(self, fixed):
         """Smoothed-aggregation hierarchy over the union operator, built
@@ -437,10 +430,10 @@ class MultiBlockSystem:
         zeros = np.zeros(self.n_dof)
         K_bc, _ = dirichlet_csr_host(self._amg_raw_csr, zeros, fixed_np, zeros)
         host_s["dirichlet"] = _time.perf_counter() - t
-        if self._bell_fine is None:
+        if self._bell_plan is None:
             t = _time.perf_counter()
-            self._bell_fine = k_bell.fine_plan(
-                build_bell_plan(self.pattern, self.dm), self.device)
+            self._bell_plan = build_bell_plan(self.pattern, self.dm)
+            self._bell_fine = k_bell.fine_plan(self._bell_plan, self.device)
             host_s["bell_plan"] = _time.perf_counter() - t
         self._amg = None  # release the old hierarchy before the new one
         self._amg = AlgebraicMultigrid(K_bc, self.dm, self.nodes, fixed_np,
@@ -545,16 +538,12 @@ class MultiBlockSystem:
     def solve_nonlinear(self, model, user_dirichlet=None, on_increment=None,
                         on_newton=None) -> SolveReport:
         """Adaptive-load-stepping geometric-nonlinear analysis over all
-        blocks: dt cutback with dof rollback, growth after fast
-        convergence, min_inc abort -- femcy_tpu's state machine."""
+        blocks: femcy_tpu's state machine (dt cutback with dof rollback,
+        growth after fast convergence, min_inc abort), ``run_increments``
+        shared with FEMSystem.solve."""
         t_start = _time.time()
-        cfg = self.config
         self.geometric_nonlinear = True
-        incs = model.time_incs
-        max_time = incs["max_time"]
-        min_inc = incs["min_inc"]
-        max_inc = incs["max_inc"]
-        self.dt = incs["ini_inc"]
+        self.dt = model.time_incs["ini_inc"]
         self.time0 = self.time1 = 0.0
         self.dof = torch.zeros_like(self.dof)
         # build_dirichlet_arrays only touches n_dof/dm/nodes of its mesh
@@ -568,52 +557,20 @@ class MultiBlockSystem:
         tractions_d = self._tensor(np.array([nbc.traction for nbc in nbcs]))
         patterns_d = self._tensor(patterns)
 
-        records = []
-        dof_old = self.dof
-        kinc = -1
-        success = True
-        message = "converged"
-        while self.time1 < max_time:
-            kinc += 1
-            self.time1 = min(self.time0 + self.dt, max_time)
-            load_ratio = self.time1 / max_time
+        def boundary(time1, load_ratio):
             fixed, sval = bc_mod.build_dirichlet_arrays(
-                model.dirichlet_bcs, mesh_view, self.time1, load_ratio,
+                model.dirichlet_bcs, mesh_view, time1, load_ratio,
                 user_dirichlet,
             )
             if patterns.shape[0]:
                 rhs = (tractions_d * load_ratio) @ patterns_d
             else:
                 rhs = torch.zeros_like(self.dof)
+            return (rhs, torch.as_tensor(fixed, device=self.device),
+                    self._tensor(sval))
 
-            converged, newton_loops, res = self._advance_inc(
-                rhs, torch.as_tensor(fixed, device=self.device),
-                self._tensor(sval), on_newton,
-            )
-            if not converged:
-                # cut back (ref: stiffnessMtrx.py:692-701)
-                self.time1 = self.time0
-                self.dt *= cfg.dt_cutback
-                self.dof = dof_old
-                kinc -= 1
-                records.append(IncrementRecord(
-                    kinc + 1, self.time0, self.dt, newton_loops, res, False))
-                if self.dt < min_inc:
-                    success = False
-                    message = ("allowable minimum dt reached; Newton's "
-                               "method did not converge")
-                    break
-                continue
-
-            if newton_loops <= cfg.newton_fast_iters:
-                self.dt = min(self.dt * cfg.dt_growth, max_inc)
-            dof_old = self.dof
-            self.time0 = self.time1
-            records.append(IncrementRecord(
-                kinc, self.time1, self.dt, newton_loops, res, True))
-            if on_increment is not None:
-                on_increment(self, records[-1])
-
+        records, success, message = run_increments(
+            self, model.time_incs, boundary, on_newton, on_increment)
         self.last_report = SolveReport(
             success=success, increments=records,
             wall_time=_time.time() - t_start, message=message,

@@ -238,6 +238,95 @@ def run_newton(dof0, evaluate, lin_solve, finish, cfg, ini_residual):
     return True, newton_loop, residual_val, ini_residual
 
 
+def run_increments(system, time_incs, boundary, on_newton=None,
+                   on_increment=None, before_inc=None, after_inc=None,
+                   diagnose=None):
+    """The adaptive load stepping (ref: stiffnessMtrx.py:647-711) of
+    femcy_tpu's ``FEMSystem.solve`` and ``MultiBlockSystem.
+    solve_nonlinear``: each increment runs ``system._advance_inc``; a
+    failure rolls the dof back and cuts dt (abort below ``min_inc``), fast
+    convergence grows it.  Reads and moves ``system``'s ``config``,
+    ``dof``, ``dt``, ``time0`` and ``time1``; the caller sets where they
+    start.  The callables:
+
+    boundary(time1, load_ratio) -> (rhs, fixed, sval)
+        the increment's load and Dirichlet arrays, on the device
+    before_inc(dof_old)
+        at the start of an increment, after time1 is set
+    after_inc(dof_old)
+        after a converged increment, before it becomes the last one
+    diagnose(dof_trial, fixed, sval) -> str
+        appended to the abort message when non-empty
+    on_increment(system, record)
+        after every converged increment
+
+    Returns (records, success, message)."""
+    cfg = system.config
+    max_time = time_incs["max_time"]
+    min_inc = time_incs["min_inc"]
+    max_inc = time_incs["max_inc"]
+    records: List[IncrementRecord] = []
+    dof_old = system.dof
+    kinc = -1
+    while system.time1 < max_time:
+        kinc += 1
+        system.time1 = min(system.time0 + system.dt, max_time)
+        load_ratio = system.time1 / max_time
+        if before_inc is not None:
+            before_inc(dof_old)
+        if cfg.verbose:
+            logger.info("kinc=%d time0=%.6g dt=%.6g", kinc, system.time0,
+                        system.dt)
+        rhs, fixed, sval = boundary(system.time1, load_ratio)
+        converged, newton_loops, res = system._advance_inc(
+            rhs, fixed, sval, on_newton)
+
+        if not converged:
+            # cut back (ref: stiffnessMtrx.py:692-701)
+            dof_trial = system.dof  # the failed trial state, pre-rollback
+            system.time1 = system.time0
+            system.dt *= cfg.dt_cutback
+            system.dof = dof_old
+            kinc -= 1
+            records.append(IncrementRecord(
+                kinc + 1, system.time0, system.dt, newton_loops, res, False))
+            if system.dt < min_inc:
+                message = ("allowable minimum dt reached; Newton's method "
+                           "did not converge")
+                if diagnose is not None:
+                    diag = diagnose(dof_trial, fixed, sval)
+                    if diag:
+                        message += "; " + diag
+                logger.warning(message)
+                return records, False, message
+            continue
+
+        # grow dt after fast convergence (ref: stiffnessMtrx.py:702-704)
+        if newton_loops <= cfg.newton_fast_iters:
+            system.dt = min(system.dt * cfg.dt_growth, max_inc)
+        if after_inc is not None:
+            after_inc(dof_old)
+        dof_old = system.dof
+        system.time0 = system.time1
+        records.append(IncrementRecord(
+            kinc, system.time1, system.dt, newton_loops, res, True))
+        if on_increment is not None:
+            on_increment(system, records[-1])
+    return records, True, "converged"
+
+
+def cg_done(system, n_dof: int, what: str, x, iters: int, rmax, b):
+    """Log, warn at the iteration cap, and record on ``system`` (its
+    ``_last_cg_iters`` and ``_cg_iters_log``) the iterations of a finished
+    CG solve; returns ``x``."""
+    if system.config.verbose:
+        logger.info("%s: %d iters, ||r||_inf=%.3e", what, iters, float(rmax))
+    warn_cg_cap(system.config, n_dof, iters, rmax, b)
+    system._last_cg_iters = iters
+    system._cg_iters_log.append(iters)
+    return x
+
+
 def warn_cg_cap(config: SolverConfig, n_dof: int, iters: int, rmax, b):
     """Warn when a CG exited on its iteration cap unconverged: the
     returned solution is silently truncated otherwise."""
@@ -599,7 +688,7 @@ class FEMSystem:
             x, iters, rmax = self._mg.pcg_solve(
                 values, b, eps=cfg.cg_eps, max_iters=max_iters, spmv=self._spmv
             )
-            return self._cg_done("MG-CG", x, iters, rmax, b)
+            return cg_done(self, self.mesh.n_dof, "MG-CG", x, iters, rmax, b)
         if cfg.preconditioner == "amg":
             self._ensure_amg(fixed, values=values)
             # the eliminated operator in M3's layout, once per solve
@@ -608,7 +697,7 @@ class FEMSystem:
                 b, lambda v: k_bell.spmv(fine, v), eps=cfg.cg_eps,
                 max_iters=max_iters,
             )
-            return self._cg_done("AMG-CG", x, iters, rmax, b)
+            return cg_done(self, self.mesh.n_dof, "AMG-CG", x, iters, rmax, b)
         if self.dia is not None:
             x, iters, rmax = dia_pcg_solve(
                 values, self.dia.offsets, self.dia.diag_idx, b,
@@ -620,17 +709,7 @@ class FEMSystem:
                 values, self._arrs["colidx"], self._arrs["diag_slot"], b,
                 eps=cfg.cg_eps, max_iters=cfg.cg_max_iters, spmv=self._spmv,
             )
-        return self._cg_done("CG", x, iters, rmax, b)
-
-    def _cg_done(self, what: str, x, iters: int, rmax, b):
-        """Log, warn at the iteration cap, and record the iterations of a
-        finished CG solve; returns ``x``."""
-        if self.config.verbose:
-            logger.info("%s: %d iters, ||r||_inf=%.3e", what, iters, float(rmax))
-        warn_cg_cap(self.config, self.mesh.n_dof, iters, rmax, b)
-        self._last_cg_iters = iters
-        self._cg_iters_log.append(iters)
-        return x
+        return cg_done(self, self.mesh.n_dof, "CG", x, iters, rmax, b)
 
     def _ensure_multigrid(self, fixed):
         """Build (or rebuild, if the fixed-dof mask changed) the V-cycle
@@ -772,9 +851,6 @@ class FEMSystem:
         t_start = _time.time()
         cfg = self.config
         incs = inp.time_incs
-        max_time = incs["max_time"]
-        min_inc = incs["min_inc"]
-        max_inc = incs["max_inc"]
         if not resume:
             self.dt = incs["ini_inc"]
             self.time0 = self.time1 = 0.0
@@ -799,21 +875,13 @@ class FEMSystem:
             # off, or switched off since a previous solve
             self._stab_diag = self._stab_ref = self._stab_scale = None
 
-        records: List[IncrementRecord] = []
-        dof_old = self.dof
         # linear-extrapolation predictor state (config.predictor): the
         # previous converged solution and the time step that produced
         # dof_old from it
         dof_prev: Optional[torch.Tensor] = None
         dt_prev = 0.0
-        kinc = -1
-        success = True
-        message = "converged"
 
-        while self.time1 < max_time:
-            kinc += 1
-            self.time1 = min(self.time0 + self.dt, max_time)
-            load_ratio = self.time1 / max_time
+        def before_inc(dof_old):
             if (
                 cfg.predictor == "extrapolate"
                 and self.geometric_nonlinear
@@ -822,11 +890,16 @@ class FEMSystem:
             ):
                 alpha = (self.time1 - self.time0) / dt_prev
                 self.dof = dof_old + alpha * (dof_old - dof_prev)
-            if cfg.verbose:
-                logger.info("kinc=%d time0=%.6g dt=%.6g", kinc, self.time0, self.dt)
+            if stab_on:
+                self._stab_ref = dof_old
+                self._stab_scale = self._scalar(
+                    0.0 if stab_c is None  # calibration increment: undamped
+                    else stab_c / (self.time1 - self.time0)
+                )
 
+        def boundary(time1, load_ratio):
             fixed, sval = bc_mod.build_dirichlet_arrays(
-                inp.dirichlet_bcs, self.mesh, self.time1, load_ratio, user_dirichlet
+                inp.dirichlet_bcs, self.mesh, time1, load_ratio, user_dirichlet
             )
             fixed_d = torch.as_tensor(fixed, device=self.device)
             sval_d = torch.as_tensor(sval, dtype=self.dtype, device=self.device)
@@ -835,43 +908,10 @@ class FEMSystem:
                 rhs = (tractions_d * load_ratio) @ patterns_d
             else:
                 rhs = torch.zeros_like(self.dof)
-            if stab_on:
-                self._stab_ref = dof_old
-                self._stab_scale = self._scalar(
-                    0.0 if stab_c is None  # calibration increment: undamped
-                    else stab_c / (self.time1 - self.time0)
-                )
+            return rhs, fixed_d, sval_d
 
-            converged, newton_loops, res = self._advance_inc(
-                rhs, fixed_d, sval_d, on_newton
-            )
-
-            if not converged:
-                # cut back (ref: stiffnessMtrx.py:692-701)
-                dof_trial = self.dof  # the failed trial state, pre-rollback
-                self.time1 = self.time0
-                self.dt *= cfg.dt_cutback
-                self.dof = dof_old
-                kinc -= 1
-                records.append(IncrementRecord(
-                    kinc + 1, self.time0, self.dt, newton_loops, res, False))
-                if self.dt < min_inc:
-                    success = False
-                    message = (
-                        "allowable minimum dt reached; Newton's method did "
-                        "not converge"
-                    )
-                    if cfg.diagnose_failure:
-                        diag = self._diagnose_failure(dof_trial, fixed_d, sval_d)
-                        if diag:
-                            message += "; " + diag
-                    logger.warning(message)
-                    break
-                continue
-
-            # grow dt after fast convergence (ref: stiffnessMtrx.py:702-704)
-            if newton_loops <= cfg.newton_fast_iters:
-                self.dt = min(self.dt * cfg.dt_growth, max_inc)
+        def after_inc(dof_old):
+            nonlocal dof_prev, dt_prev, stab_c, stab_energy
             if stab_on:
                 du_inc = self.dof - dof_old
                 mduu = float((self._stab_diag * du_inc * du_inc).sum())
@@ -894,15 +934,17 @@ class FEMSystem:
                     # dissipated energy of this increment: f_damp . du
                     stab_energy += float(self._stab_scale) * mduu
             dof_prev, dt_prev = dof_old, self.time1 - self.time0
-            dof_old = self.dof
-            self.time0 = self.time1
-            records.append(
-                IncrementRecord(kinc, self.time1, self.dt, newton_loops, res, True)
-            )
+
+        def increment_done(system, record):
             if cfg.checkpoint_path:
-                self._write_checkpoint(cfg.checkpoint_path, kinc)
+                self._write_checkpoint(cfg.checkpoint_path, record.kinc)
             if on_increment is not None:
-                on_increment(self, records[-1])
+                on_increment(self, record)
+
+        records, success, message = run_increments(
+            self, incs, boundary, on_newton, increment_done, before_inc,
+            after_inc, self._diagnose_failure if cfg.diagnose_failure else None,
+        )
 
         if stab_on and success and stab_energy > 0.0:
             elas = abs(self.elastic_energy())

@@ -429,6 +429,27 @@ def test_other_model_kinds_raise_naming_slice_h(tmp_path, capsys, text):
     _same_lines(t_out, j_out)
 
 
+@pytest.mark.parametrize("text, route", [
+    (_TWO_MATERIALS, "multi-block"), (_BEAM, "B31 beam"),
+], ids=["two materials", "B31"])
+def test_amg_ignored_with_a_warning_off_the_single_block_route(
+        tmp_path, capsys, text, route):
+    """--preconditioner amg, which femcy_tpu's CLI lacks, does not reach the
+    multi-block and B31 routes: they say so on their first line, and then
+    print what they print without it."""
+    path = tmp_path / "model.inp"
+    path.write_text(text)
+    argv = [str(path), "--platform", "cpu"]
+    rc, plain = _run(tcli.main, argv, capsys)
+    rc_amg, amg = _run(tcli.main, argv + ["--preconditioner", "amg"], capsys)
+    assert rc == rc_amg == 0
+    first, *rest = amg.splitlines()
+    assert first == ("warning: --preconditioner amg is only supported for "
+                     f"single-block models; ignoring it for this {route} "
+                     "analysis")
+    _same_lines("\n".join(rest), plain)
+
+
 def test_dynamic_rescue_raises_naming_slice_g(tmp_path):
     path = tmp_path / "model.inp"
     path.write_text(_cantilever())

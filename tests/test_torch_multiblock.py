@@ -628,6 +628,31 @@ def test_newton_failure_cuts_back_like_jax(tmp_path):
         ts.solve_model(tm)
 
 
+def test_newton_hooks_see_what_jax_hooks_see(tmp_path):
+    """on_increment and on_newton, run through the increment driver that
+    MultiBlockSystem shares with FEMSystem: called as femcy_tpu calls them,
+    on the same increments and Newton evaluations."""
+    path = tmp_path / "plate_nl.inp"
+    _plate_inp(path, step="", static="0.5, 1., 1e-05, 0.5", traction=0.5)
+    jm, tm = F.read_inp_multi(str(path)), T.read_inp_multi(str(path))
+    js, ts = jmb.system_from_model(jm), T.system_from_model(tm, device="cpu")
+    seen = {"jax": ([], []), "torch": ([], [])}
+    for key, system, model in (("jax", js, jm), ("torch", ts, tm)):
+        incs, evals = seen[key]
+        report = system.solve_nonlinear(
+            model,
+            on_increment=lambda s, r, incs=incs, system=system: incs.append(
+                (s is system, r.kinc, r.time, r.dt, r.newton_iters)),
+            on_newton=lambda s, n, res, evals=evals, system=system:
+                evals.append((s is system, n)))
+        assert report.success
+        assert [i[1:] for i in incs] == [
+            (r.kinc, r.time, r.dt, r.newton_iters)
+            for r in report.increments if r.converged]
+    assert seen["torch"] == seen["jax"]
+    assert len(seen["torch"][0]) >= 2 and all(i[0] for i in seen["torch"][0])
+
+
 def test_system_defaults_to_the_card(monkeypatch):
     nodes, jblocks = _blocks("plate")
     blocks = [convert.element_block_from(b) for b in jblocks]
