@@ -240,7 +240,37 @@ Phases (any failure raises, and the script exits non-zero):
    against the Timoshenko closed form (1e-9); the CLI's B31 route on a
    2 x 2 x 2-bay .inp, rc 0.  Prints the assembly, Cholesky, solve and
    recovery walls and the peak memory.
-22. print the launch counts and the CG iterations of every path, each
+22. mixed beam + continuum box (slice H, second half): box_tets(56, 56,
+   56) in LinearIsotropic(1000, 0.3) under a grid of B31 members on its
+   z = 1 face (every x- and y-line of that face's nodes: 6,384 members,
+   3,249 beam nodes; RECT 0.02 x 0.02, E 2e5, nu 0.3), z = 0's
+   translations clamped, an x *Cload of total 1 over the z = 1 nodes
+   (1,111,158 dofs) through MixedSystem on the card in float64 with the
+   default config (Jacobi CG, M2).  First M6, the mixed scatter, on the
+   system's own element matrices in float32 and float64: bit for bit its
+   plain version run on the CPU and bit-identical on a rerun; the union
+   values, read through the pattern, within 1e-12 of the f64 host twin
+   summed over dof pairs without pattern or plan
+   (``mixed.union_operator_host``), every padding slot 0; timed in turns with its plain version and one ``index_add_`` over the
+   int64 targets, with its bound.  Then the solve, every launch counter
+   zeroed just before and read just after: M6 once, M2 once per CG
+   iteration, no other kernel, ||A x - b||_inf <= cg_eps * ||b||_inf with
+   the plain SpMV, M2 against its plain version on the eliminated
+   operator, finite results of the expected shapes and a warm solve with
+   the same iterations.  Prints the setup phases, the walls and the peak
+   memory.
+23. CLI, mixed: the same grid on box_tets(12) as a .inp with a *Dsload on
+   its z = 1 faces through ``cli.main``: rc 0, the lines of a
+   ``solve_mixed(read_mixed_inp(...))`` on the card, M6 once and no other
+   kernel (a direct solve).
+24. Riks: ``riks_solve`` on the box Newton cell's mesh and system
+   (box_tets(56), nlgeom, the multigrid CG), z = 0 clamped, a pressure of
+   20 on the z = 1 face, lam_target 1: success, no limit point, the step
+   history against ``EXPECTED_RIKS``, M5 and P2 once per evaluation, P1
+   in the solves, no other kernel, the f64 host residual at the final
+   state within the Riks tolerance and the dof within 1e-6 of a
+   load-controlled ``FEMSystem.solve`` of the same load.
+25. print the launch counts and the CG iterations of every path, each
    beside the count that the deterministic kernels have always given, and
    fail on another count (a kernel changed its rounding), and the Newton
    histories beside the pinned ones; then the kernel table as one JSON
@@ -250,7 +280,8 @@ Phases (any failure raises, and the script exits non-zero):
    operations over the f64 peak, from this run's shapes) and the launches
    of the path that runs it (P1 and P3 from the multigrid slice, P2 and
    M5 from the box Newton path, M1 and M2 from the ELL slice, M4 from the
-   ELL Newton path, M3 from the AMG slice); then the result line
+   ELL Newton path, M3 from the AMG slice, M6 from the mixed box); then
+   the result line
    ``{"ok": true, "device": {...}}`` last.
 """
 
@@ -290,7 +321,8 @@ EXPECTED_CG_ITERS = {"multigrid box": 6, "jacobi box": 257, "ELL slice": 312,
                      "CLI, ELL": 306, "CLI, general DIA": 166,
                      "AMG slice": 8, "CLI, AMG": 5,
                      "two-material ELL": 314, "two-material AMG": 7,
-                     "hex+wedge": 188, "CLI, multi-block": 188}
+                     "hex+wedge": 188, "CLI, multi-block": 188,
+                     "mixed box": 1125}
 #: the Newton cases' time schedule: the top face turned by time * pi about
 #: the box axis, 3.6 degrees in five increments.  Each increment's first
 #: Newton iterate puts its whole turn into the top element layer, 1/56
@@ -329,6 +361,18 @@ MB_SLABS = 10
 #: bays per side of the B31 lattice: 4,913 nodes, 29,478 dofs, 13,872
 #: members, a 6.95 GB dense f64 operator
 BEAM_N = 16
+#: the frame-stiffened box of the mixed phases (``mixed_model``): its grid
+#: members' square RECT side, E and nu; the box of the CLI's mixed .inp and
+#: the pressure on its z = 1 face
+MIXED_SECTION, MIXED_E, MIXED_NU = 0.02, 2.0e5, 0.3
+MIXED_CLI_N, MIXED_PRESSURE = 12, 1.0
+#: the Riks phase: the pressure on the z = 1 face of the NX=56 box, and the
+#: (lambda, Newton iterations) of each arc-length step, as the card has
+#: given them since the phase was added (lambda within 1e-6 relative)
+RIKS_PRESSURE = 20.0
+EXPECTED_RIKS = [(0.10030737271675544, 2), (0.2519212172804087, 3),
+                 (0.48194578134763744, 4), (0.8328704462678769, 4),
+                 (1.3726049370483355, 5)]
 
 
 def check(ok: bool, what: str) -> None:
@@ -468,6 +512,7 @@ def launch_counters():
         ell_scatter,
         ell_spmv,
         internal_force,
+        mixed_scatter,
         structured_accumulate,
         structured_force,
         structured_fused,
@@ -480,7 +525,8 @@ def launch_counters():
             "ell_spmv": ell_spmv.spmv,
             "internal_force": internal_force.scatter_force,
             "structured_force": structured_force.force_scatter,
-            "bell_spmv": bell_spmv.spmv}
+            "bell_spmv": bell_spmv.spmv,
+            "mixed_scatter": mixed_scatter.scatter}
 
 
 def zero_launches() -> None:
@@ -3174,6 +3220,437 @@ def beam_run(torch, card):
     return launches
 
 
+def mixed_model(n: int):
+    """The frame-stiffened box: box_tets(n, n, n) in LinearIsotropic(1000,
+    0.3) under a grid of B31 members on its z = 1 face (every x-line and
+    every y-line of that face's nodes, RECT ``MIXED_SECTION`` square, E
+    ``MIXED_E``, nu ``MIXED_NU``), the z = 0 face's translations clamped,
+    an x-direction *Cload of total 1.0 spread over the z = 1 nodes.
+    Returns (mesh, MixedModel)."""
+    from femcy_tpu_torch import (BeamBlock, BeamSection, ElementBlock,
+                                 LinearIsotropic, MixedModel)
+    from femcy_tpu_torch.meshgen import box_tets
+
+    mesh = box_tets(n, n, n)
+    bottom, top = z_faces(mesh)
+    grid = np.empty((n + 1, n + 1), dtype=np.int64)
+    ij = np.rint(mesh.nodes[top, :2] * n).astype(np.int64)
+    grid[ij[:, 0], ij[:, 1]] = top
+    members = np.concatenate([
+        np.stack([grid[:-1].ravel(), grid[1:].ravel()], 1),
+        np.stack([grid[:, :-1].ravel(), grid[:, 1:].ravel()], 1)])
+    model = MixedModel(
+        nodes=mesh.nodes,
+        solid_blocks=[ElementBlock(mesh.elements, mesh.element,
+                                   LinearIsotropic(1000.0, 0.3), "solid")],
+        beam_blocks=[BeamBlock(members.astype(np.int32),
+                               BeamSection.rect(MIXED_SECTION, MIXED_SECTION),
+                               MIXED_E, MIXED_NU, "grid")],
+        dirichlet=[(int(b), d, 0.0) for b in bottom for d in range(3)],
+        cloads=[(int(t), 0, 1.0 / top.size) for t in top],
+        neumann_bcs=[])
+    return mesh, model
+
+
+def mixed_kernel_checks(torch, card, system, results):
+    """M6 on the card on the system's own element matrices (the tets' Ke,
+    the grid's k_glob), in float32 and float64: bit for bit its plain
+    version run on the CPU on the same tensors (one indexed add per block
+    into one accumulator) and bit-identical on a rerun; in float64 the
+    union values, read through the pattern (``pattern.to_scipy``), within
+    1e-12 of the f64 host twin summed over dof pairs without pattern or
+    plan (``mixed.union_operator_host``), and every padding slot 0; then
+    timed in turns with its plain
+    version on the card and one ``index_add_`` over the int64 targets of
+    all blocks, with its bound.  Returns the float64 union values."""
+    from femcy_tpu_torch.kernels import mixed_scatter as km6
+    from femcy_tpu_torch.mixed import union_operator_host
+
+    plan = system._plan
+    cpu_plan = dataclasses.replace(plan, node_ptr=plan.node_ptr.cpu(),
+                                   pairs=plan.pairs.cpu(),
+                                   positions=plan.positions.cpu())
+    t = time.perf_counter()
+    targets = km6.contribution_targets(cpu_plan)
+    targets_s = time.perf_counter() - t
+    kes = system._element_matrices()
+    values = None
+    err64 = None
+    reads = []
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[1]
+        kd = [k.to(dtype) for k in kes]
+        out = km6.scatter(kd, plan)
+        out2 = km6.scatter(kd, plan)
+        torch.cuda.synchronize()
+        check(torch.equal(out, out2), f"M6 {name}: rerun not bit-identical")
+        t = time.perf_counter()
+        flat = torch.zeros(plan.n_dof * plan.width, dtype=dtype)
+        for k, tg in zip(kd, targets):
+            flat.index_add_(0, tg, k.cpu().reshape(-1))
+        plain_s = time.perf_counter() - t
+        err = float((out.cpu().reshape(-1) - flat).abs().max())
+        check(torch.equal(out.cpu().reshape(-1), flat),
+              f"M6 {name}: not bit-equal to its CPU plain version ({err:.3e})")
+        reads.append(f"{name} bit-equal (CPU plain {plain_s:.2f} s)")
+        del kd, out2, flat
+        if dtype == torch.float64:
+            values, err64 = out, err
+        else:
+            del out
+    t = time.perf_counter()
+    host = union_operator_host(system.nodes, system.solid_blocks,
+                               system.beam_blocks)
+    host_s = time.perf_counter() - t
+    vals = values.cpu().numpy()
+    check(not vals.reshape(-1)[~system.pattern.valid.reshape(-1)].any(),
+          "M6: a padding slot is not 0")
+    rel = float(abs(system.pattern.to_scipy(vals) - host).max()
+                / abs(host).max())
+    check(rel <= TOL["float64"], f"M6: union values vs the f64 host twin "
+          f"{rel:.3e}")
+    del host, vals
+
+    # timing, float64: the plain version on the card (its targets made and
+    # one index_add_ per block, each call), one index_add_ over all blocks'
+    # int64 targets (made before the timing)
+    tcat = torch.cat([tg.to(DEVICE) for tg in targets])
+    kcat = torch.cat([k.reshape(-1) for k in kes])
+    size = plan.n_dof * plan.width
+
+    def library():
+        return torch.zeros(size, dtype=torch.float64,
+                           device=DEVICE).index_add_(0, tcat, kcat)
+
+    ms, pms, lms = in_turns(lambda: km6.scatter_plain(kes, plan),
+                            lambda: km6.scatter(kes, plan), 3, 20, library)
+    del tcat, kcat
+    n_pairs = plan.pairs.numel()
+    n_bytes = (sum(k.numel() for k in kes) * 8 + size * 8
+               + plan.node_ptr.numel() * 8 + n_pairs * 4
+               + plan.positions.numel() * plan.positions.element_size())
+    b = bound(n_bytes, sum(k.numel() for k in kes), "float64")
+    results["float64"]["mixed_scatter"] = row(err64, ms, pms, lms, b)
+    print(f"M6 kernel checks on {card} ({len(kes)} blocks: "
+          f"{', '.join(str(tuple(k.shape)) for k in kes)}; union "
+          f"{plan.n_dof} x {plan.width}): " + "; ".join(reads)
+          + f", bit-identical reruns; CPU targets {targets_s:.2f} s; union "
+          f"values vs the f64 host twin {rel:.3e} (tol {TOL['float64']:.0e}; "
+          f"twin {host_s:.2f} s); float64 M6 {ms:.4f} ms, plain {pms:.4f} ms, "
+          f"index_add_ {lms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}; "
+          f"{n_bytes / 1e9:.3f} GB), {b[0] / ms:.1%} of it", flush=True)
+    del kes, targets
+    return values
+
+
+def mixed_run(torch, card, results):
+    """Phase 22: the frame-stiffened NX=56 box (``mixed_model``) through
+    MixedSystem on the card in float64 with the default SolverConfig (the
+    Jacobi CG through M2), M6 checked first (``mixed_kernel_checks``),
+    every launch counter zeroed just before the solve and read just after.
+    Checks: M6 launched once, M2 once per CG iteration, no other kernel,
+    ||A x - b||_inf <= cg_eps * ||b||_inf with the plain ELL SpMV, M2
+    against its plain version on the eliminated operator, finite results
+    of the expected shapes, a warm solve with the same iterations.  Returns
+    (launches, CG iterations)."""
+    from femcy_tpu_torch import MixedSystem, SolverConfig
+    from femcy_tpu_torch.solvers.cg import ell_spmv
+
+    t_phase = time.perf_counter()
+    mesh, model = mixed_model(FULL[0])
+    t = time.perf_counter()
+    system = MixedSystem(model.nodes, model.solid_blocks, model.beam_blocks,
+                         SolverConfig(), device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    check(system.dtype == torch.float64, "default dtype is not float64")
+    n_beam = model.beam_blocks[0].elements.shape[0]
+    print(f"mixed box: {mesh.n_elements} C3D4 + {n_beam} B31, "
+          f"{system.n_nodes} nodes, {system.n_dof} dofs; union ELL width "
+          f"{system.pattern.width}; MixedSystem init {init_s:.3f} s ("
+          + ", ".join(f"{k} {v:.3f} s" for k, v in system._init_seconds.items())
+          + ")", flush=True)
+    values = mixed_kernel_checks(torch, card, system, results)
+    check(torch.equal(values, system._assemble()),
+          "mixed: the system's assembly is not M6's output")
+    del values
+
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    res = system.solve(model)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    iters = system._last_cg_iters
+    check(iters > 0 and res.cg_iters == iters, "mixed: the CG did not run")
+    check(launches["mixed_scatter"] == 1,
+          f"mixed: M6 launched {launches['mixed_scatter']} times")
+    check(launches["ell_spmv"] == iters, f"mixed: M2 launched "
+          f"{launches['ell_spmv']} times for {iters} iterations")
+    for name, n in launches.items():
+        if name not in ("mixed_scatter", "ell_spmv"):
+            check(n == 0, f"mixed: {name} launched {n} times")
+    values_bc, b = system._linear_system(*system._model_arrays(model))
+    r = float((ell_spmv(values_bc, system._arrs["colidx"], system.dof)
+               - b).abs().max())
+    bmax = float(b.abs().max())
+    check(r <= system.config.cg_eps * bmax,
+          f"mixed: ||Ax-b||_inf {r:.3e} > cg_eps*||b||_inf")
+    m2_union_check(torch, system, values_bc, "mixed box")
+    del values_bc, b
+    E, G = mesh.n_elements, mesh.element.n_gp
+    for what, a, shape in (("u", res.u, (system.n_nodes, 6)),
+                           ("stress", res.solid_stress[0], (E, G, 3, 3)),
+                           ("mises", res.solid_mises[0], (E, G)),
+                           ("end forces", res.beam_end_forces[0],
+                            (n_beam, 12))):
+        check(a.shape == shape, f"mixed: {what} shape {a.shape}")
+        check(bool(np.isfinite(a).all()), f"mixed: {what} not finite")
+    check(res.n_auto_fixed == 3 * (system.n_nodes - (FULL[0] + 1) ** 2),
+          f"mixed: {res.n_auto_fixed} auto-fixed rotations")
+    t = time.perf_counter()
+    system.solve(model)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t
+    check(system._last_cg_iters == iters, "mixed: warm solve iterations")
+    print(f"mixed box on {card}: first solve {first_s:.4f} s, warm "
+          f"{warm_s:.4f} s (each with recovery), {iters} CG iterations, "
+          f"||Ax-b||_inf/||b||_inf {r / bmax:.3e}, max |u| "
+          f"{np.abs(res.u[:, :3]).max():.6e}, max solid mises "
+          f"{float(res.solid_mises[0].max()):.6g}, max beam axial force "
+          f"{np.abs(res.beam_end_forces[0][:, [0, 6]]).max():.6e}, "
+          f"{res.n_auto_fixed} auto-fixed rotations, peak memory "
+          f"{peak / 1e9:.3f} GB; launches {launches}", flush=True)
+    del system, res
+    torch.cuda.empty_cache()
+    print(f"mixed phase wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches, iters
+
+
+def mixed_inp_text(n: int) -> str:
+    """``mixed_model(n)`` as an Abaqus .inp: the tets and the grid as two
+    *Element blocks with a *Solid Section and a *Beam Section of one
+    material, *Elastic 1000, 0.3 (the reader maps a block to a material
+    through a *Solid Section or, with one material, to that one), the z = 0
+    face's translations clamped, the x *Cload on every z = 1 node and a
+    pressure of ``MIXED_PRESSURE`` on the z = 1 faces through a *Surface
+    of per-face-number element sets."""
+    import io
+
+    mesh, model = mixed_model(n)
+    beams = model.beam_blocks[0].elements
+    E = mesh.n_elements
+    buf = io.StringIO()
+    buf.write("*Heading\nchip_smoke mixed model\n*Node\n")
+    np.savetxt(buf, np.hstack([np.arange(1, mesh.n_nodes + 1)[:, None],
+                               mesh.nodes]),
+               fmt=["%d"] + ["%.17g"] * 3, delimiter=", ")
+    buf.write("*Element, type=C3D4, elset=solid\n")
+    np.savetxt(buf, np.hstack([np.arange(1, E + 1)[:, None],
+                               mesh.elements.astype(np.int64) + 1]),
+               fmt="%d", delimiter=", ")
+    buf.write("*Element, type=B31, elset=grid\n")
+    np.savetxt(buf, np.hstack([np.arange(E + 1, E + beams.shape[0] + 1)[:, None],
+                               beams.astype(np.int64) + 1]),
+               fmt="%d", delimiter=", ")
+    z = mesh.nodes[:, 2]
+    lines = []
+    for name, sel in (("bot", z < 1e-9), ("top", z > z.max() - 1e-9)):
+        lines += [f"*Nset, nset={name}",
+                  ", ".join(str(i + 1) for i in np.nonzero(sel)[0])]
+    faces = []
+    for k, facets in enumerate(mesh.element.inp_surface_num):
+        local = [ln for f in facets for ln in f]
+        on = (z[mesh.elements[:, local]] > z.max() - 1e-9).all(axis=1)
+        if on.any():
+            faces.append(k + 1)
+            lines += [f"*Elset, elset=_z{k + 1}",
+                      ", ".join(str(e + 1) for e in np.nonzero(on)[0])]
+    lines.append("*Surface, type=ELEMENT, name=zload")
+    lines += [f"_z{k}, S{k}" for k in faces]
+    top = int((z > z.max() - 1e-9).sum())
+    lines += ["*Solid Section, elset=solid, material=m",
+              "*Beam Section, elset=grid, material=m, section=RECT",
+              f"{MIXED_SECTION!r}, {MIXED_SECTION!r}",
+              "*Material, name=m", "*Elastic", "1000., 0.3",
+              "*Step, name=s, nlgeom=NO",
+              "*Static", "1., 1., 1e-05, 1.", "*Boundary", "bot, 1, 3",
+              "*Cload", f"top, 1, {1.0 / top!r}",
+              "*Dsload", f"zload, P, {MIXED_PRESSURE!r}", "*End Step"]
+    buf.write("\n".join(lines) + "\n")
+    return buf.getvalue()
+
+
+def cli_mixed_run(torch, card):
+    """Phase 23: ``mixed_inp_text(MIXED_CLI_N)`` through ``cli.main`` on the
+    card: rc 0, the printed lines equal to those formatted from a
+    ``solve_mixed(read_mixed_inp(...))`` on the card, M6 launched once and
+    no other kernel (a direct solve).  Returns the launches."""
+    import tempfile
+
+    from femcy_tpu_torch import read_mixed_inp, solve_mixed
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/mixed.inp"
+        with open(path, "w") as fh:
+            fh.write(mixed_inp_text(MIXED_CLI_N))
+        rc, out, launches, walls, wall = run_cli([path])
+        model = read_mixed_inp(path)
+    print(f"CLI, mixed: stdout of the CLI:\n{out}", end="", flush=True)
+    check(rc == 0, f"CLI, mixed: exit code {rc}")
+    check(launches["mixed_scatter"] == 1,
+          f"CLI, mixed: M6 launched {launches['mixed_scatter']} times")
+    for name, n in launches.items():
+        if name != "mixed_scatter":
+            check(n == 0, f"CLI, mixed: {name} launched {n} times")
+    check(len(model.neumann_bcs) == 1 and model.beam_blocks,
+          "CLI, mixed: the model lost its *Dsload or its beams")
+    res = solve_mixed(model, device=DEVICE)
+    n_beam = model.beam_blocks[0].elements.shape[0]
+    n_solid = model.solid_blocks[0].elements.shape[0]
+    defl = np.linalg.norm(res.u[:, :3], axis=1)
+    fe = res.beam_end_forces[0]
+    want = [
+        f"mixed model: {n_solid} continuum elements in 1 block(s) + "
+        f"{n_beam} B31 elements, {model.nodes.shape[0]} nodes (6 dofs/node)",
+        f"max deflection |u| = {defl.max():.6e} (node {defl.argmax()})",
+        f"max solid Mises = {float(res.solid_mises[0].max()):.6e}",
+        f"max beam axial force N = {np.abs(fe[:, [0, 6]]).max():.6e}",
+        f"max beam bending moment = {np.abs(fe[:, [4, 5, 10, 11]]).max():.6e}",
+        f"auto-constrained rotation dofs: {res.n_auto_fixed}"]
+    lines = out.splitlines()
+    check(lines[:-1] == want and lines[-1].startswith("solve time: "),
+          f"CLI, mixed: printed lines {lines} differ from {want}")
+    print(f"CLI, mixed on {card}: rc 0, the lines of solve_mixed on the same "
+          f"model; wall {wall:.3f} s (stages "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items())
+          + f"); launches {launches}; phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+def riks_run(torch, card):
+    """Phase 24: riks_solve on the box Newton cell's mesh and system
+    (box_tets(56), nlgeom, the multigrid CG), z = 0 clamped, a pressure of
+    ``RIKS_PRESSURE`` on the z = 1 face, lam_target 1, every launch counter
+    zeroed just before and read just after.  Checks: success, no limit
+    point, the step history against ``EXPECTED_RIKS``, M5 and P2 once per
+    Newton evaluation, P1 in the solves and no other kernel; the f64 host
+    residual at the final state (``internal_force_host`` minus the load,
+    BC rows zeroed) within the Riks tolerance; the dof against a
+    load-controlled FEMSystem.solve of the same load (newton_rel_tol 1e-8)
+    within 1e-6 relative.  Returns (launches, history)."""
+    from femcy_tpu_torch import FEMSystem, LinearIsotropic, SolverConfig
+    from femcy_tpu_torch import bc as bc_mod
+    from femcy_tpu_torch.assembly_host import internal_force_host
+    from femcy_tpu_torch.io.inp import DirichletBC, InpModel, NeumannBC
+    from femcy_tpu_torch.meshgen import box_tets
+    from femcy_tpu_torch.solvers.riks import riks_solve
+
+    t_phase = time.perf_counter()
+    mesh = box_tets(*FULL)
+    bottom, top = z_faces(mesh)
+    t = time.perf_counter()
+    on_top = set(top.tolist())
+    faces = [f for f in mesh.boundary if all(v in on_top for v in f)]
+    faces_s = time.perf_counter() - t
+    inp = InpModel(
+        nodes=mesh.nodes, elements=mesh.elements, element_type="C3D4",
+        node_sets={"bottom": bottom, "top": top}, ele_sets={}, face_sets={},
+        dirichlet_bcs=[DirichletBC(bottom, d, 0.0) for d in range(3)],
+        neumann_bcs=[NeumannBC(faces, RIKS_PRESSURE, None)],
+        material_type="Elastic", material_params=[1000.0, 0.3],
+        geometric_nonlinear=True,
+        time_incs={"ini_inc": 1.0, "max_time": 1.0, "min_inc": 1e-5,
+                   "max_inc": 1.0})
+    mat = LinearIsotropic(1000.0, 0.3)
+    config = dict(preconditioner="multigrid", linear_solver="cg")
+    t = time.perf_counter()
+    system = FEMSystem(mesh, mat, True, SolverConfig(**config), device=DEVICE)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    evals = []
+    newton_eval = system._newton_eval
+
+    def counted(*args):
+        evals.append(1)
+        return newton_eval(*args)
+
+    system._newton_eval = counted
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    report = riks_solve(system, inp, lam_target=1.0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    history = [(s.lam, s.iters) for s in report.steps]
+    print(f"Riks on {card}: {mesh.n_elements} C3D4, {mesh.n_dof} dofs, "
+          f"{config}, pressure {RIKS_PRESSURE}; top facets {len(faces)} in "
+          f"{faces_s:.2f} s; setup {setup_s:.3f} s; riks_solve {wall:.3f} s, "
+          f"{len(evals)} evaluations, {len(system._cg_iters_log)} CG solves "
+          f"({sum(system._cg_iters_log)} iterations), history "
+          f"{[(repr(lam), n) for lam, n in history]}, stiffness "
+          f"{[s.stiffness for s in report.steps]}, {report.message!r}, peak "
+          f"memory {peak / 1e9:.3f} GB; launches {launches}", flush=True)
+    check(report.success and not report.limit_point,
+          f"Riks: success {report.success}, limit point "
+          f"{report.limit_point}: {report.message}")
+    check([n for _, n in history] == [n for _, n in EXPECTED_RIKS]
+          and all(abs(lam - want) <= 1e-6 * want
+                  for (lam, _), (want, _) in zip(history, EXPECTED_RIKS)),
+          f"Riks: history {history}, {EXPECTED_RIKS} expected")
+    n = len(evals)
+    check(launches["structured_force"] == n
+          and launches["structured_accumulate"] == n,
+          f"Riks: M5 launched {launches['structured_force']} and P2 "
+          f"{launches['structured_accumulate']} times for {n} evaluations")
+    check(launches["dia_spmv"] > 0, "Riks: P1 never launched")
+    for name, k in launches.items():
+        if name not in ("structured_force", "structured_accumulate",
+                        "dia_spmv"):
+            check(k == 0, f"Riks: {name} launched {k} times")
+    patterns, tractions = bc_mod.build_neumann_patterns(mesh, inp.neumann_bcs)
+    q = tractions @ patterns
+    fixed = np.zeros(mesh.n_dof, bool)
+    fixed[bottom[:, None] * 3 + np.arange(3)] = True
+    q[fixed] = 0.0
+    dof = system.dof.cpu().numpy()
+    check(bool(np.isfinite(dof).all()), "Riks: dof not finite")
+    r = internal_force_host(mesh, mat, dof) - q
+    r[fixed] = 0.0
+    rms, q_rms = (float(np.sqrt(np.mean(r * r))),
+                  float(np.sqrt(np.mean(q * q))))
+    check(rms <= 1e-6 * q_rms, f"Riks: f64 host residual {rms:.3e} > "
+          f"1e-6 * {q_rms:.3e}")
+    del system
+    torch.cuda.empty_cache()
+    newton = FEMSystem(mesh, mat, True, SolverConfig(newton_rel_tol=1e-8,
+                                                     **config), device=DEVICE)
+    t = time.perf_counter()
+    nrep = newton.solve(inp)
+    torch.cuda.synchronize()
+    newton_s = time.perf_counter() - t
+    check(nrep.success, f"Riks: the load-controlled solve: {nrep.message}")
+    ref = newton.dof.cpu().numpy()
+    rel = float(np.abs(dof - ref).max() / np.abs(ref).max())
+    check(rel <= 1e-6, f"Riks: dof vs the load-controlled solve {rel:.3e}")
+    del newton
+    torch.cuda.empty_cache()
+    print(f"Riks checks: f64 host residual {rms:.3e} (tol "
+          f"{1e-6 * q_rms:.3e}); dof vs FEMSystem.solve of the same load "
+          f"{rel:.3e} (its solve {newton_s:.3f} s, "
+          f"{[(r_.newton_iters, r_.converged) for r_ in nrep.increments]}); "
+          f"max |u| {np.abs(dof).max():.6e}; phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, history
+
+
 def main() -> int:
     card = card_line()
     print(card, flush=True)
@@ -3303,6 +3780,13 @@ def main() -> int:
     by_path["beam lattice"] = beam_run(torch, card)
     print(f"multi-block and beam phases: wall {time.perf_counter() - t:.1f} s",
           flush=True)
+    t = time.perf_counter()
+    by_path["mixed box"], iters["mixed box"] = mixed_run(torch, card, results)
+    by_path["CLI, mixed"] = cli_mixed_run(torch, card)
+    by_path["Riks"], riks_history = riks_run(torch, card)
+    print(f"mixed and Riks phases: wall {time.perf_counter() - t:.1f} s",
+          flush=True)
+    launches["mixed_scatter"] = by_path["mixed box"]["mixed_scatter"]
     launches["structured_accumulate"] = by_path["box Newton"][
         "structured_accumulate"]
     launches["structured_force"] = by_path["box Newton"]["structured_force"]
@@ -3319,6 +3803,8 @@ def main() -> int:
     print("Newton histories by path (expected): " + "; ".join(
         f"{path} {histories[path]} ({EXPECTED_NEWTON[path]})"
         for path in EXPECTED_NEWTON), flush=True)
+    print(f"Riks history (expected): {riks_history} ({EXPECTED_RIKS})",
+          flush=True)
     print(f"M1 on the general-DIA route at box_hexes{HEX}, float64: "
           + json.dumps(m1_dia), flush=True)
 
@@ -3343,6 +3829,8 @@ def main() -> int:
                              "femcy_tpu/structured.py:476"),
         "bell_spmv": ("femcy_tpu_torch/csrc/bell_spmv.cu",
                       "femcy_tpu/solvers/bell.py:147"),
+        "mixed_scatter": ("femcy_tpu_torch/csrc/mixed_scatter.cu",
+                          "femcy_tpu/mixed.py:245"),
     }
     rows = []
     for name, (src, replaces) in source.items():

@@ -9,7 +9,10 @@ Newton loop on the nonlinear path) -> strain, stress, Mises, energy and
 extrapolation; models of several element types or materials
 (``read_inp_multi`` -> ``system_from_model`` -> ``MultiBlockSystem``,
 each block scattered over one union pattern) and B31 beam lattices
-(``read_beam_inp`` -> ``solve_beam``, a dense Cholesky solve).  A
+(``read_beam_inp`` -> ``solve_beam``, a dense Cholesky solve), and
+frame-stiffened solids that mix B31 beams and continuum blocks over 6-dof
+nodes (``read_mixed_inp`` -> ``solve_mixed`` -> ``MixedSystem``), and the
+Riks arc-length continuation (``solvers.riks.riks_solve``).  A
 structured box (``meshgen.box_tets``) assembles from its node coordinates into the analytic DIA layout and
 solves with a Jacobi, block-Jacobi or geometric-multigrid PCG; any other
 mesh goes through the ELL pattern (native C++ code, native/) and, where its
@@ -21,10 +24,11 @@ rewritten by hand in CUDA for sm_90a (kernels/, csrc/): the DIA SpMV
 (the two-stage box assembly) and the fused coordinates-to-DIA assembly
 (the isotropic box default); so are the general path's deterministic
 stiffness scatter and ELL SpMV, the algebraic multigrid's block-ELL
-SpMV, and the Newton path's internal-force scatters (general and box).
+SpMV, the Newton path's internal-force scatters (general and box), and
+the mixed beam + continuum scatter.
 
 Tensors live on the device given to ``FEMSystem`` (and
-``MultiBlockSystem``, ``solve_beam``): the card unless
+``MultiBlockSystem``, ``solve_beam``, ``MixedSystem``): the card unless
 ``device="cpu"`` is passed (no auto-detection, and no CPU fallback), in
 float64 by default; ``FEMCY_TPU_X64=0`` selects float32, as in femcy_tpu.
 TF32 is off for matmuls and convolutions: f32 products run at full f32
@@ -65,13 +69,22 @@ from femcy_tpu_torch.beam import (  # noqa: E402
     read_beam_inp,
     solve_beam,
 )
+from femcy_tpu_torch.mixed import (  # noqa: E402
+    BeamBlock,
+    MixedModel,
+    MixedResult,
+    MixedSystem,
+    read_mixed_inp,
+    solve_mixed,
+)
 from femcy_tpu_torch import meshgen  # noqa: E402
 
+# femcy_tpu's public names, the same set; mises_stress, BeamBlock and
+# MixedResult are importable from here too
 __all__ = [
     "SolverConfig",
     "FEMesh",
     "FEMSystem",
-    "mises_stress",
     "InpModel",
     "read_inp",
     "InpBlockModel",
@@ -88,6 +101,10 @@ __all__ = [
     "BeamSection",
     "read_beam_inp",
     "solve_beam",
+    "MixedModel",
+    "MixedSystem",
+    "read_mixed_inp",
+    "solve_mixed",
     "meshgen",
     "__version__",
 ]

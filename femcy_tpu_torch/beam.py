@@ -222,19 +222,28 @@ def _local_stiffness(L, E, G, sec: BeamSection):
     return K
 
 
+def element_matrices(L, R, E: float, nu: float, sec: BeamSection):
+    """The beam elements' (k_loc, T, k_glob), each (E, 12, 12), from their
+    lengths L (E,) and frames R (E, 3, 3): the local stiffness, the frame
+    transform blockdiag(R, R, R, R) and the global-frame stiffness
+    T^T k_loc T."""
+    G = E / (2.0 * (1.0 + nu))
+    k_loc = _local_stiffness(L, E, G, sec)
+    T = R.new_zeros((R.shape[0], 12, 12))
+    for b in range(4):
+        T[:, 3 * b:3 * b + 3, 3 * b:3 * b + 3] = R
+    return k_loc, T, torch.einsum("eji,ejk,ekl->eil", T, k_loc, T)
+
+
 def _assemble(model: BeamModel, device, dtype):
     """Batched local stiffness -> congruence transform -> dense scatter.
     Returns (K (n, n), k_loc (E, 12, 12), T (E, 12, 12), edofs (E, 12))
     on ``device``."""
     L_np, R_np = _element_frames(model.nodes, model.elements, model.section.n1)
-    G = model.E / (2.0 * (1.0 + model.nu))
     L = torch.as_tensor(L_np, dtype=dtype, device=device)
     R = torch.as_tensor(R_np, dtype=dtype, device=device)
-    k_loc = _local_stiffness(L, model.E, G, model.section)  # (E, 12, 12)
-    T = R.new_zeros((R.shape[0], 12, 12))  # blockdiag(R, R, R, R)
-    for b in range(4):
-        T[:, 3 * b:3 * b + 3, 3 * b:3 * b + 3] = R
-    k_glob = torch.einsum("eji,ejk,ekl->eil", T, k_loc, T)
+    k_loc, T, k_glob = element_matrices(L, R, model.E, model.nu,
+                                        model.section)
 
     n = model.n_dof
     edofs = torch.as_tensor(

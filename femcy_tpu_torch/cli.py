@@ -16,10 +16,10 @@ The model runs on the card unless ``--platform cpu`` is given (``gpu`` and
 solve.  Models are routed as femcy_tpu routes them: several element types
 or materials to ``MultiBlockSystem`` (per-block stresses, mixed-cell VTK,
 HTML and PNG), pure B31 models to ``solve_beam`` (deflection, rotation and
-section forces), each printing femcy_tpu's lines for that route; models
-that mix B31 beams and continuum elements raise ``NotImplementedError``
-before any system is built, as ``--dynamic-rescue`` does through
-``SolverConfig``.  With ``-v`` the wall of each stage is logged.
+section forces), and models that mix B31 beams and continuum elements to
+``solve_mixed`` (deflection, solid Mises, beam section forces), each
+printing femcy_tpu's lines for that route.  With ``-v`` the wall of each
+stage is logged.
 """
 
 from __future__ import annotations
@@ -36,8 +36,6 @@ logger = logging.getLogger("femcy_tpu_torch.cli")
 
 STRESS_IDS_2D = {0: (0, 0), 1: (1, 1), 2: (0, 1)}
 STRESS_IDS_3D = {0: (0, 0), 1: (1, 1), 2: (2, 2), 3: (0, 1), 4: (2, 0), 5: (1, 2)}
-
-_MIXED = "the mixed beam + continuum system (ROADMAP slice H, second half)"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -212,13 +210,14 @@ def main(argv=None) -> int:
         # femcy_tpu's CLI does
         with open(args.inp, "r") as fh:
             types = _element_types(fh.read())
+        beam_model = block_model = mixed_model = None
         if "B31" in types and len(types) > 1:
-            raise NotImplementedError(
-                "mixed B31 + continuum models need " + _MIXED
-                + ", not yet ported to femcy_tpu_torch"
-            )
-        beam_model = block_model = None
-        if types == {"B31"}:
+            # beams AND continuum blocks in one model: the 6-dof/node
+            # mixed system
+            from femcy_tpu_torch.mixed import read_mixed_inp
+
+            mixed_model = read_mixed_inp(args.inp)
+        elif types == {"B31"}:
             from femcy_tpu_torch.beam import read_beam_inp
 
             beam_model = read_beam_inp(args.inp)
@@ -226,6 +225,8 @@ def main(argv=None) -> int:
             block_model = _read_multiblock(args.inp)
             if block_model is None:
                 inp = read_inp(args.inp)
+    if mixed_model is not None:
+        return _main_mixed(args, mixed_model, t0, device)
     if beam_model is not None:
         return _main_beam(args, beam_model, t0, device)
     if block_model is not None:
@@ -532,6 +533,40 @@ def _main_beam(args, model, t0: float, device) -> int:
     print(f"max axial force N = {np.abs(fe[:, [0, 6]]).max():.6e}")
     print(f"max bending moment = {np.abs(fe[:, [4, 5, 10, 11]]).max():.6e}")
     print(f"max torque = {np.abs(fe[:, [3, 9]]).max():.6e}")
+    print(f"solve time: {dt:.2f}s")
+    return 0
+
+
+def _main_mixed(args, model, t0: float, device) -> int:
+    """The route of mixed beam + continuum models, femcy_tpu's
+    ``_main_mixed``: one 6-dof/node system over B31 and continuum blocks,
+    solved with femcy_tpu's default SolverConfig for this route."""
+    from femcy_tpu_torch.mixed import solve_mixed
+
+    _warn_amg_ignored(args, "mixed beam + continuum")
+    n_beam = sum(b.elements.shape[0] for b in model.beam_blocks)
+    n_solid = sum(b.elements.shape[0] for b in model.solid_blocks)
+    print(
+        f"mixed model: {n_solid} continuum elements in "
+        f"{len(model.solid_blocks)} block(s) + {n_beam} B31 elements, "
+        f"{model.nodes.shape[0]} nodes (6 dofs/node)"
+    )
+    with _stage("solve"):
+        res = solve_mixed(model, device=device)
+    dt = time.time() - t0
+    defl = np.linalg.norm(res.u[:, :3], axis=1)
+    print(f"max deflection |u| = {defl.max():.6e} (node {defl.argmax()})")
+    if res.solid_mises:
+        mx = max(float(m.max()) for m in res.solid_mises)
+        print(f"max solid Mises = {mx:.6e}")
+    if res.beam_end_forces:
+        fe = np.concatenate(res.beam_end_forces)
+        print(f"max beam axial force N = {np.abs(fe[:, [0, 6]]).max():.6e}")
+        print(
+            f"max beam bending moment = "
+            f"{np.abs(fe[:, [4, 5, 10, 11]]).max():.6e}"
+        )
+    print(f"auto-constrained rotation dofs: {res.n_auto_fixed}")
     print(f"solve time: {dt:.2f}s")
     return 0
 

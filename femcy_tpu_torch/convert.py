@@ -19,6 +19,7 @@ from femcy_tpu_torch.beam import BeamModel, BeamSection
 from femcy_tpu_torch.elements import ELEMENT_REGISTRY
 from femcy_tpu_torch.io.inp import DirichletBC, InpModel, NeumannBC
 from femcy_tpu_torch.mesh import FEMesh
+from femcy_tpu_torch.mixed import BeamBlock, MixedModel
 from femcy_tpu_torch.multiblock import ElementBlock
 from femcy_tpu_torch.solvers.amg import AlgebraicMultigrid, _device_levels
 from femcy_tpu_torch.solvers.bell import BellPlan
@@ -171,14 +172,48 @@ def blocks_from(ref_system):
 
 def beam_model_from(ref_model):
     """BeamModel with the reference model's arrays, section and lists."""
-    sec = ref_model.section
     return BeamModel(
         nodes=np.array(ref_model.nodes),
         elements=np.array(ref_model.elements),
-        section=BeamSection(**{f.name: getattr(sec, f.name)
-                               for f in dataclasses.fields(BeamSection)}),
+        section=_section_from(ref_model.section),
         E=ref_model.E,
         nu=ref_model.nu,
         dirichlet=[tuple(d) for d in ref_model.dirichlet],
         loads=[tuple(d) for d in ref_model.loads],
+    )
+
+
+def _section_from(ref_section) -> BeamSection:
+    return BeamSection(**{f.name: getattr(ref_section, f.name)
+                          for f in dataclasses.fields(BeamSection)})
+
+
+def beam_block_from(ref_block) -> BeamBlock:
+    """BeamBlock with a copy of the reference block's connectivity, its
+    section and its material constants."""
+    return BeamBlock(
+        elements=np.array(ref_block.elements),
+        section=_section_from(ref_block.section),
+        E=ref_block.E,
+        nu=ref_block.nu,
+        name=ref_block.name,
+    )
+
+
+def mixed_model_from(ref_model) -> MixedModel:
+    """MixedModel with the reference model's arrays, blocks, lists and
+    ``*Dsload`` BCs."""
+    return MixedModel(
+        nodes=np.array(ref_model.nodes),
+        solid_blocks=[element_block_from(b) for b in ref_model.solid_blocks],
+        beam_blocks=[beam_block_from(b) for b in ref_model.beam_blocks],
+        dirichlet=[tuple(d) for d in ref_model.dirichlet],
+        cloads=[tuple(d) for d in ref_model.cloads],
+        neumann_bcs=[
+            NeumannBC(
+                list(b.face_set), b.traction,
+                None if b.direction is None else np.array(b.direction),
+            )
+            for b in ref_model.neumann_bcs
+        ],
     )

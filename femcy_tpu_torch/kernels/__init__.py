@@ -10,7 +10,7 @@ The three TPU kernels of femcy_tpu/kernels/:
 - structured_fused.fused_assemble     <- femcy_tpu/kernels/structured_fused.py (P3)
 
 and the device ops that carry the general (ELL) path, the algebraic
-multigrid and the Newton path, which the JAX package leaves to XLA's
+multigrid, the Newton path and the mixed beam + continuum models, which the JAX package leaves to XLA's
 scatters and gathers:
 
 - ell_scatter.scatter            <- assembly.scatter_stiffness_blocks / solvers/dia.dia_scatter (M1)
@@ -18,4 +18,5 @@ scatters and gathers:
 - bell_spmv.spmv                 <- solvers/bell.bell_spmv (M3, the algebraic multigrid)
 - internal_force.scatter_force   <- assembly.internal_force (M4, general layouts)
 - structured_force.force_scatter <- structured.structured_force_scatter (M5, the box)
+- mixed_scatter.scatter          <- mixed.MixedSystem._assemble_impl (M6, beams + continuum)
 """

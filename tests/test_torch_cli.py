@@ -406,22 +406,18 @@ def _same_lines(t_out, j_out):
     _BEAM,
     _BEAM.replace("*Nset", "*Element, type=C3D4, elset=solid\n"
                   "2, 1, 2, 3, 4\n*Nset").replace(
-        "2, 1., 0., 0.\n", "2, 1., 0., 0.\n3, 0., 1., 0.\n4, 0., 0., 1.\n"),
+        "2, 1., 0., 0.\n", "2, 1., 0., 0.\n3, 0., 1., 0.\n4, 0., 0., 1.\n")
+    # the tet's nodes 3 and 4 held too: else it turns about the beam's axis
+    .replace("*Nset, nset=fix\n1\n", "*Nset, nset=fix\n1, 3, 4\n"),
 ], ids=["two materials", "B31", "B31 + C3D4"])
 def test_other_model_kinds_raise_naming_slice_h(tmp_path, capsys, text):
     """The model kinds of ROADMAP slice H: a two-material model (the
-    multi-block route) and a B31 beam now solve, and print femcy_tpu.cli's
-    lines, line for line; B31 + continuum still raises, naming the mixed
-    system, the second half of the slice."""
+    multi-block route), a B31 beam and a B31 beam on a C3D4 tet (the mixed
+    beam + continuum route) solve, and print femcy_tpu.cli's lines, line
+    for line."""
     path = tmp_path / "model.inp"
     path.write_text(text)
     argv = [str(path), "--platform", "cpu"]
-    if "C3D4" in text:
-        with pytest.raises(NotImplementedError,
-                           match=r"mixed beam \+ continuum system \(ROADMAP "
-                                 r"slice H, second half\)"):
-            tcli.main(argv)
-        return
     j_rc, j_out = _run(jcli.main, argv, capsys)
     t_rc, t_out = _run(tcli.main, argv, capsys)
     assert t_rc == j_rc == 0

@@ -31,14 +31,15 @@ def test_imports_and_solves_without_jax():
         from femcy_tpu_torch.io.inp import DirichletBC, InpModel
         from femcy_tpu_torch.kernels import (
             bell_spmv, dia_spmv, ell_scatter, ell_spmv, internal_force,
-            structured_accumulate, structured_force, structured_fused)
+            mixed_scatter, structured_accumulate, structured_force,
+            structured_fused)
         from femcy_tpu_torch import cli, user
         from femcy_tpu_torch.io import colormap, export, html
         from femcy_tpu_torch.native import loader
         from femcy_tpu_torch.utils import gif, timing
-        from femcy_tpu_torch.solvers import amg, bell, cg, multigrid
+        from femcy_tpu_torch.solvers import amg, bell, cg, multigrid, riks
         from femcy_tpu_torch import assembly_host, topology
-        from femcy_tpu_torch import beam, multiblock
+        from femcy_tpu_torch import beam, mixed, multiblock
 
         mesh = T.meshgen.box_tets(3, 2, 2)
         bottom = np.nonzero(mesh.nodes[:, 2] < 1e-9)[0]
@@ -126,6 +127,16 @@ def test_imports_and_solves_without_jax():
                            T.BeamSection.circ(0.1), 1000.0, 0.3,
                            [(0, d, 0.0) for d in range(6)], [(1, 1, 1.0)])
         assert T.solve_beam(cant, device="cpu").u[1, 1] > 0
+        # the beam on a tet: the mixed beam + continuum route
+        tet = T.meshgen.box_tets(1, 1, 1)
+        mixed_model = T.MixedModel(
+            tet.nodes, [T.ElementBlock(tet.elements, tet.element,
+                                       T.LinearIsotropic(1000.0, 0.3))],
+            [T.BeamBlock(np.array([[6, 7]], np.int32), T.BeamSection.circ(0.1),
+                         1000.0, 0.3)],
+            [(n, d, 0.0) for n in range(4) for d in range(3)]
+            + [(6, d, 0.0) for d in range(3, 6)], [(7, 1, 1.0)], [])
+        assert T.solve_mixed(mixed_model, device="cpu").u[7, 1] > 0
         assert not any(m == "jax" or m.startswith(("jax.", "femcy_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")
