@@ -251,14 +251,28 @@ Phases (any failure raises, and the script exits non-zero):
    plain version run on the CPU and bit-identical on a rerun; the union
    values, read through the pattern, within 1e-12 of the f64 host twin
    summed over dof pairs without pattern or plan
-   (``mixed.union_operator_host``), every padding slot 0; timed in turns with its plain version and one ``index_add_`` over the
-   int64 targets, with its bound.  Then the solve, every launch counter
+   (``mixed.union_operator_host``), every padding slot 0; timed in turns
+   with its plain version and one ``index_add_`` over the int64 targets,
+   in float64 and float32, each with its bound, beside its registers,
+   warps a block and resident blocks an SM and its plan's bytes.  Then
+   the solve, every launch counter
    zeroed just before and read just after: M6 once, M2 once per CG
    iteration, no other kernel, ||A x - b||_inf <= cg_eps * ||b||_inf with
    the plain SpMV, M2 against its plain version on the eliminated
    operator, finite results of the expected shapes and a warm solve with
    the same iterations.  Prints the setup phases, the walls and the peak
    memory.
+22b. M6's other routes: a radial strut hub (box_tets(16), the z = 1
+   face's centre joined by B31 members to that face's other 288 nodes;
+   union width 1,746) through MixedSystem on the card: its plan is wide
+   (every row summed in the output, int32 starts), and M6 on its own
+   element matrices is bit for bit its CPU plain version in float32 and
+   float64, bit-identical on a rerun, within 1e-12 of the f64 host twin
+   with every padding slot 0, each launch counted on the wide route; then
+   a C3D8 bar under a B31 spine (M6's generic kind), plain and with a
+   collapsed hex, on its plan and on that plan built wide, on seeded
+   element matrices: bit for bit the CPU plain version in float32 and
+   float64, bit-identical reruns.  Prints its wall.
 23. CLI, mixed: the same grid on box_tets(12) as a .inp with a *Dsload on
    its z = 1 faces through ``cli.main``: rc 0, the lines of a
    ``solve_mixed(read_mixed_inp(...))`` on the card, M6 once and no other
@@ -366,6 +380,9 @@ BEAM_N = 16
 #: the pressure on its z = 1 face
 MIXED_SECTION, MIXED_E, MIXED_NU = 0.02, 2.0e5, 0.3
 MIXED_CLI_N, MIXED_PRESSURE = 12, 1.0
+#: the hub of M6's wide route (``hub_model``): box_tets(16), its z = 1
+#: face's centre joined to the other 288 nodes of that face
+MIXED_HUB_N = 16
 #: the Riks phase: the pressure on the z = 1 face of the NX=56 box, and the
 #: (lambda, Newton iterations) of each arc-length step, as the card has
 #: given them since the phase was added (lambda within 1e-6 relative)
@@ -1214,7 +1231,8 @@ def general_kernel_checks(torch, card, results):
 
 
 def plan_on_cpu(torch, plan):
-    """A copy of M1's (and M4's) plan with every tensor on the CPU."""
+    """A copy of a kernel's plan (M1's and M4's, M6's) with every tensor on
+    the CPU."""
     return dataclasses.replace(plan, **{
         f.name: getattr(plan, f.name).cpu() for f in dataclasses.fields(plan)
         if isinstance(getattr(plan, f.name), torch.Tensor)})
@@ -3252,26 +3270,22 @@ def mixed_model(n: int):
     return mesh, model
 
 
-def mixed_kernel_checks(torch, card, system, results):
-    """M6 on the card on the system's own element matrices (the tets' Ke,
-    the grid's k_glob), in float32 and float64: bit for bit its plain
+def m6_checks(torch, system, label: str):
+    """M6 on the card on ``system``'s own element matrices (its continuum
+    Ke, its beams' k_glob), in float32 and float64: bit for bit its plain
     version run on the CPU on the same tensors (one indexed add per block
     into one accumulator) and bit-identical on a rerun; in float64 the
     union values, read through the pattern (``pattern.to_scipy``), within
     1e-12 of the f64 host twin summed over dof pairs without pattern or
-    plan (``mixed.union_operator_host``), and every padding slot 0; then
-    timed in turns with its plain
-    version on the card and one ``index_add_`` over the int64 targets of
-    all blocks, with its bound.  Returns the float64 union values."""
+    plan (``mixed.union_operator_host``), and every padding slot 0.
+    Returns (float64 values, their max abs difference to the CPU plain
+    version, the CPU targets, a summary)."""
     from femcy_tpu_torch.kernels import mixed_scatter as km6
     from femcy_tpu_torch.mixed import union_operator_host
 
     plan = system._plan
-    cpu_plan = dataclasses.replace(plan, node_ptr=plan.node_ptr.cpu(),
-                                   pairs=plan.pairs.cpu(),
-                                   positions=plan.positions.cpu())
     t = time.perf_counter()
-    targets = km6.contribution_targets(cpu_plan)
+    targets = km6.contribution_targets(plan_on_cpu(torch, plan))
     targets_s = time.perf_counter() - t
     kes = system._element_matrices()
     values = None
@@ -3283,7 +3297,8 @@ def mixed_kernel_checks(torch, card, system, results):
         out = km6.scatter(kd, plan)
         out2 = km6.scatter(kd, plan)
         torch.cuda.synchronize()
-        check(torch.equal(out, out2), f"M6 {name}: rerun not bit-identical")
+        check(torch.equal(out, out2),
+              f"M6 {label} {name}: rerun not bit-identical")
         t = time.perf_counter()
         flat = torch.zeros(plan.n_dof * plan.width, dtype=dtype)
         for k, tg in zip(kd, targets):
@@ -3291,7 +3306,8 @@ def mixed_kernel_checks(torch, card, system, results):
         plain_s = time.perf_counter() - t
         err = float((out.cpu().reshape(-1) - flat).abs().max())
         check(torch.equal(out.cpu().reshape(-1), flat),
-              f"M6 {name}: not bit-equal to its CPU plain version ({err:.3e})")
+              f"M6 {label} {name}: not bit-equal to its CPU plain version "
+              f"({err:.3e})")
         reads.append(f"{name} bit-equal (CPU plain {plain_s:.2f} s)")
         del kd, out2, flat
         if dtype == torch.float64:
@@ -3304,42 +3320,76 @@ def mixed_kernel_checks(torch, card, system, results):
     host_s = time.perf_counter() - t
     vals = values.cpu().numpy()
     check(not vals.reshape(-1)[~system.pattern.valid.reshape(-1)].any(),
-          "M6: a padding slot is not 0")
+          f"M6 {label}: a padding slot is not 0")
     rel = float(abs(system.pattern.to_scipy(vals) - host).max()
                 / abs(host).max())
-    check(rel <= TOL["float64"], f"M6: union values vs the f64 host twin "
-          f"{rel:.3e}")
-    del host, vals
+    check(rel <= TOL["float64"], f"M6 {label}: union values vs the f64 host "
+          f"twin {rel:.3e}")
+    summary = (f"M6 checks on {label} ({len(kes)} blocks: "
+               f"{', '.join(str(tuple(k.shape)) for k in kes)}; union "
+               f"{plan.n_dof} x {plan.width}, "
+               f"{'wide' if plan.wide else 'shared'} route): "
+               + "; ".join(reads) + f", bit-identical reruns; CPU targets "
+               f"{targets_s:.2f} s; union values vs the f64 host twin "
+               f"{rel:.3e} (tol {TOL['float64']:.0e}; twin {host_s:.2f} s), "
+               "padding 0")
+    return values, err64, targets, summary
 
-    # timing, float64: the plain version on the card (its targets made and
-    # one index_add_ per block, each call), one index_add_ over all blocks'
-    # int64 targets (made before the timing)
+
+def mixed_kernel_checks(torch, card, system, results):
+    """M6 checked on the mixed box (``m6_checks``), then timed in turns
+    with its plain version on the card and one ``index_add_`` over the
+    int64 targets of all blocks, in float64 and float32, each with its
+    bound: the element matrices read once, the values written once and the
+    first design's plan (node_ptr, int32 pairs, four int16 starts a pair),
+    whose bytes the current plan's are printed beside.  Prints the kernel
+    instance's registers, warps a block and resident blocks an SM.
+    Returns the float64 union values."""
+    from femcy_tpu_torch.kernels import mixed_scatter as km6
+
+    plan = system._plan
+    values, err64, targets, summary = m6_checks(torch, system, "mixed box")
+    print(summary, flush=True)
+    kes64 = system._element_matrices()
     tcat = torch.cat([tg.to(DEVICE) for tg in targets])
-    kcat = torch.cat([k.reshape(-1) for k in kes])
+    del targets
     size = plan.n_dof * plan.width
-
-    def library():
-        return torch.zeros(size, dtype=torch.float64,
-                           device=DEVICE).index_add_(0, tcat, kcat)
-
-    ms, pms, lms = in_turns(lambda: km6.scatter_plain(kes, plan),
-                            lambda: km6.scatter(kes, plan), 3, 20, library)
-    del tcat, kcat
     n_pairs = plan.pairs.numel()
-    n_bytes = (sum(k.numel() for k in kes) * 8 + size * 8
-               + plan.node_ptr.numel() * 8 + n_pairs * 4
-               + plan.positions.numel() * plan.positions.element_size())
-    b = bound(n_bytes, sum(k.numel() for k in kes), "float64")
-    results["float64"]["mixed_scatter"] = row(err64, ms, pms, lms, b)
-    print(f"M6 kernel checks on {card} ({len(kes)} blocks: "
-          f"{', '.join(str(tuple(k.shape)) for k in kes)}; union "
-          f"{plan.n_dof} x {plan.width}): " + "; ".join(reads)
-          + f", bit-identical reruns; CPU targets {targets_s:.2f} s; union "
-          f"values vs the f64 host twin {rel:.3e} (tol {TOL['float64']:.0e}; "
-          f"twin {host_s:.2f} s); float64 M6 {ms:.4f} ms, plain {pms:.4f} ms, "
-          f"index_add_ {lms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}; "
-          f"{n_bytes / 1e9:.3f} GB), {b[0] / ms:.1%} of it", flush=True)
-    del kes, targets
+    first_plan = plan.node_ptr.numel() * 8 + n_pairs * 4 + n_pairs * 4 * 2
+    plan_now = sum(t.numel() * t.element_size()
+                   for t in (plan.node_ptr, plan.pairs, plan.positions))
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).split(".")[1]
+        kes = [k.to(dtype).contiguous() for k in kes64]
+        kcat = torch.cat([k.reshape(-1) for k in kes])
+
+        def library():
+            return torch.zeros(size, dtype=dtype,
+                               device=DEVICE).index_add_(0, tcat, kcat)
+
+        ms, pms, lms = in_turns(lambda: km6.scatter_plain(kes, plan),
+                                lambda: km6.scatter(kes, plan), 3, 20,
+                                library)
+        vb = kes[0].element_size()
+        n_bytes = sum(k.numel() for k in kes) * vb + size * vb + first_plan
+        b = bound(n_bytes, sum(k.numel() for k in kes), name)
+        if dtype == torch.float64:
+            results["float64"]["mixed_scatter"] = row(err64, ms, pms, lms, b)
+        attr = km6.kernel_attributes(dtype, plan)
+        print(f"timing mixed box {name} on {card}: M6 mixed_scatter kernel "
+              f"{ms:.4f} ms, plain {pms:.4f} ms, index_add_ {lms:.4f} ms "
+              f"({lms / ms:.2f}x M6), bound {b[0]:.4f} ms ({b[1]}; "
+              f"{n_bytes / 1e9:.3f} GB), {b[0] / ms:.1%} of it; plan "
+              f"{plan_now / 1e9:.4f} GB (the first design's "
+              f"{first_plan / 1e9:.4f} GB, in the bound); "
+              f"{attr['registers']} registers a thread, "
+              f"{attr['local_bytes']} local bytes, {attr['warps_per_block']} "
+              f"warps a block, {attr['blocks_per_sm']} blocks "
+              f"({attr['blocks_per_sm'] * attr['warps_per_block']} warps) "
+              f"resident an SM, {attr['shared_bytes']} shared bytes a block",
+              flush=True)
+        del kes, kcat
+    del tcat, kes64
     return values
 
 
@@ -3428,6 +3478,132 @@ def mixed_run(torch, card, results):
     print(f"mixed phase wall {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return launches, iters
+
+
+def hub_model(n: int):
+    """A radial strut hub: box_tets(n, n, n) in the mixed box's material,
+    the centre node of its z = 1 face joined by a B31 member of the mixed
+    box's section to each of that face's other nodes, the z = 0 face's
+    translations clamped.  Returns (mesh, MixedModel)."""
+    from femcy_tpu_torch import (BeamBlock, BeamSection, ElementBlock,
+                                 LinearIsotropic, MixedModel)
+    from femcy_tpu_torch.meshgen import box_tets
+
+    mesh = box_tets(n, n, n)
+    bottom, top = z_faces(mesh)
+    ij = np.rint(mesh.nodes[top, :2] * n).astype(np.int64)
+    hub = top[(ij == n // 2).all(axis=1)][0]
+    others = top[top != hub]
+    members = np.stack([np.full_like(others, hub), others], 1)
+    model = MixedModel(
+        nodes=mesh.nodes,
+        solid_blocks=[ElementBlock(mesh.elements, mesh.element,
+                                   LinearIsotropic(1000.0, 0.3), "solid")],
+        beam_blocks=[BeamBlock(members.astype(np.int32),
+                               BeamSection.rect(MIXED_SECTION, MIXED_SECTION),
+                               MIXED_E, MIXED_NU, "struts")],
+        dirichlet=[(int(b), d, 0.0) for b in bottom for d in range(3)],
+        cloads=[], neumann_bcs=[])
+    return mesh, model
+
+
+def hex_spine_blocks(collapse: bool):
+    """box_hexes(8, 2, 2) over 8 x 1 x 1 in the mixed box's material under
+    a B31 spine along its top edge (M6's generic kind beside B31), its
+    first hex collapsed (node 7 named as node 6) if ``collapse``.  Returns
+    (nodes, solid blocks, beam blocks)."""
+    from femcy_tpu_torch import (BeamBlock, BeamSection, ElementBlock,
+                                 LinearIsotropic)
+    from femcy_tpu_torch.meshgen import box_hexes
+
+    mesh = box_hexes(8, 2, 2, lx=8.0)
+    y, z = mesh.nodes[:, 1], mesh.nodes[:, 2]
+    edge = np.nonzero((y > y.max() - 1e-9) & (z > z.max() - 1e-9))[0]
+    edge = edge[np.argsort(mesh.nodes[edge, 0])]
+    elements = mesh.elements.copy()
+    if collapse:
+        elements[0, 7] = elements[0, 6]
+    return mesh.nodes, [ElementBlock(elements, mesh.element,
+                                     LinearIsotropic(1000.0, 0.3), "hexes")], [
+        BeamBlock(np.stack([edge[:-1], edge[1:]], 1).astype(np.int32),
+                  BeamSection.rect(MIXED_SECTION, MIXED_SECTION), MIXED_E,
+                  MIXED_NU, "spine")]
+
+
+def mixed_route_run(torch, card):
+    """Phase 22b, M6's other routes.  The hub (``hub_model(MIXED_HUB_N)``)
+    through MixedSystem on the card in float64: union ELL width above 1024,
+    so a wide plan (int32 starts, every row summed in the output); M6 on
+    its own element matrices checked by ``m6_checks`` (bit for bit its CPU
+    plain version in float32 and float64, bit-identical reruns, within
+    1e-12 of the f64 host twin, padding 0), and the wide-route counter
+    moved on every one of those launches.  Then the generic kind
+    (``hex_spine_blocks``, plain and with a collapsed hex) on its own plan
+    and on that plan built wide, on seeded element matrices: bit for bit
+    the CPU plain version in float32 and float64, bit-identical reruns.
+    Prints the phase wall."""
+    from femcy_tpu_torch import MixedSystem, SolverConfig
+    from femcy_tpu_torch.kernels import mixed_scatter as km6
+
+    t_phase = time.perf_counter()
+    _, model = hub_model(MIXED_HUB_N)
+    system = MixedSystem(model.nodes, model.solid_blocks, model.beam_blocks,
+                         SolverConfig(), device=DEVICE)
+    plan = system._plan
+    check(plan.width > 1024 and plan.wide
+          and plan.positions.dtype == torch.int32,
+          f"hub: union width {plan.width}, wide {plan.wide}")
+    wide0, all0 = km6.scatter.wide_launches, km6.scatter.launches
+    _, _, _, summary = m6_checks(torch, system, "the hub")
+    wide_n = km6.scatter.wide_launches - wide0
+    check(wide_n == km6.scatter.launches - all0 and wide_n >= 4,
+          f"hub: {wide_n} wide launches of {km6.scatter.launches - all0}")
+    print(f"{summary}; {wide_n} launches, all on the wide route", flush=True)
+    del system, plan
+
+    for collapse in (False, True):
+        nodes, solids, beams = hex_spine_blocks(collapse)
+        system = MixedSystem(nodes, solids, beams, SolverConfig(),
+                             device=DEVICE)
+        plans = {"shared": system._plan}
+        saved = km6.SHARED_ROW_BYTES
+        km6.SHARED_ROW_BYTES = 3 * 8 * (system.pattern.width - 1)
+        try:
+            plans["wide"] = km6.build_mixed_plan(
+                system.n_nodes, system.pattern.width,
+                [b.elements for b in solids + beams], [3, 6],
+                system._block_positions, DEVICE)
+        finally:
+            km6.SHARED_ROW_BYTES = saved
+        rng = np.random.default_rng(11)
+        kes_np = [rng.standard_normal(tuple(k.shape))
+                  for k in system._element_matrices()]
+        label = f"hex spine{', collapsed' if collapse else ''}"
+        for route, plan in plans.items():
+            check(plan.kinds == (km6.KIND_GENERIC, km6.KIND_BEAM)
+                  and plan.wide == (route == "wide"),
+                  f"M6 {label}: kinds {plan.kinds}, wide {plan.wide}")
+            flagged = int((plan.pairs < 0).sum())
+            check(flagged == (8 if collapse else 0),
+                  f"M6 {label}: {flagged} flagged pairs")
+            for dtype in (torch.float32, torch.float64):
+                kes = [torch.as_tensor(k, dtype=dtype, device=DEVICE)
+                       for k in kes_np]
+                out = km6.scatter(kes, plan)
+                ref = km6.scatter_plain([k.cpu() for k in kes],
+                                        plan_on_cpu(torch, plan))
+                check(torch.equal(out.cpu(), ref), f"M6 {label} {route} "
+                      f"{dtype}: not bit-equal to its CPU plain version")
+                check(torch.equal(out, km6.scatter(kes, plan)),
+                      f"M6 {label} {route} {dtype}: rerun not bit-identical")
+            print(f"M6 on {label}, {route} route (generic kind, union width "
+                  f"{plan.width}, {flagged} flagged pairs): bit-equal to the "
+                  "CPU plain version in float32 and float64, bit-identical "
+                  "reruns", flush=True)
+        del system, plans
+    torch.cuda.empty_cache()
+    print(f"M6 routes phase wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
 
 
 def mixed_inp_text(n: int) -> str:
@@ -3782,6 +3958,7 @@ def main() -> int:
           flush=True)
     t = time.perf_counter()
     by_path["mixed box"], iters["mixed box"] = mixed_run(torch, card, results)
+    mixed_route_run(torch, card)
     by_path["CLI, mixed"] = cli_mixed_run(torch, card)
     by_path["Riks"], riks_history = riks_run(torch, card)
     print(f"mixed and Riks phases: wall {time.perf_counter() - t:.1f} s",

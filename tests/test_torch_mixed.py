@@ -36,7 +36,7 @@ from femcy_tpu.beam import BeamSection as JBeamSection
 from femcy_tpu.beam import solve_beam as j_solve_beam
 from femcy_tpu.io.inp import NeumannBC
 from femcy_tpu.materials import LinearIsotropic
-from femcy_tpu.meshgen import box_tets, cantilever_tets
+from femcy_tpu.meshgen import box_hexes, box_tets, cantilever_tets
 from femcy_tpu.multiblock import ElementBlock
 
 import femcy_tpu_torch as T
@@ -125,6 +125,20 @@ def _dsload():
                                direction=np.array([0.0, 0.0, 1.0]))])
 
 
+def _hex_spine():
+    """A C3D8 bar (box_hexes(8, 2, 2) over 8 x 1 x 1) under a beam spine
+    along its top edge: a continuum block of M6's generic kind beside
+    B31."""
+    mesh = box_hexes(8, 2, 2, lx=8.0)
+    _, bb = _spine(mesh)
+    x = mesh.nodes[:, 0]
+    fixed, tip = np.nonzero(x < 1e-9)[0], np.nonzero(x > x.max() - 1e-9)[0]
+    return jmx.MixedModel(
+        nodes=mesh.nodes, solid_blocks=[_soft_solid(mesh)], beam_blocks=[bb],
+        dirichlet=[(int(n), d, 0.0) for n in fixed for d in range(6)],
+        cloads=[(int(n), 2, -1.0 / len(tip)) for n in tip], neumann_bcs=[])
+
+
 def _with_orphan(model):
     """``model`` with one more node, numbered in the middle, that no
     element names; its six dofs fixed."""
@@ -148,7 +162,8 @@ def _with_orphan(model):
 
 MODELS = {"spine": _stiffened, "beam-only": lambda: _beam_line()[0],
           "solid-only": _solid_only,
-          "orphan": lambda: _with_orphan(_stiffened())}
+          "orphan": lambda: _with_orphan(_stiffened()),
+          "hex-spine": _hex_spine}
 
 
 def _systems(model, **config):
@@ -409,63 +424,135 @@ def test_plain_scatter_is_jax_scatter(name):
     assert abs(host - jcsr).max() / abs(jcsr).max() < 1e-14
 
 
+def _decode(stored):
+    return ~stored if stored < 0 else stored
+
+
 def _plan_walk(kes, plan):
-    """The M6 kernel's rule in numpy: one node's six rows at a time,
-    zeroed, its pairs walked in order (block order, then element order),
-    each pair's band Ke[e, a*dm:(a+1)*dm, :] added into the slots (di,
-    start + dj), start the translation run start of b for di < 3 and its
-    rotation run start for di >= 3 -- one b at a time where the element
-    names a node twice."""
+    """The M6 kernel's rule in numpy, node by node: the node's translation
+    rows zeroed in its warp's shared row (in the output on a wide plan),
+    its rotation rows zeroed in the output; its pair ids and their first
+    four run starts read 32 pairs at a time (the window); its pairs walked
+    in order, in runs of one block, each run with the block's kind: local
+    pair q = p - offset_b's band, values q * band to (q + 1) * band of the
+    block's element matrices, added into the slots (di, start + dj), start
+    the translation run start of b for di < 3 and its rotation run start
+    for di >= 3, rotation values into the output rows -- one b at a time
+    where the element names a node twice.  C3D4 and B31 take their starts
+    from the window, a generic block from the pair's own row of npe.  At
+    the end the shared rows are copied out."""
     ptr, pairs = plan.node_ptr.numpy(), plan.pairs.numpy()
     pos = plan.positions.numpy().astype(np.int64).reshape(-1, plan.stride)
-    offsets = np.asarray(plan.pair_offsets)
+    offsets = list(plan.pair_offsets) + [2**31 - 1]
     W = plan.width
-    out = np.empty(plan.out_shape, dtype=kes[0].dtype)
+    out = np.full(plan.out_shape, np.nan, dtype=kes[0].dtype)
     for n in range(plan.n_nodes):
-        row = np.zeros((6, W), dtype=kes[0].dtype)
-        for t in range(ptr[n], ptr[n + 1]):
-            p = int(pairs[t])
-            q = ~p if p < 0 else p
-            b = int(np.searchsorted(offsets, q, side="right")) - 1
+        lo, count = int(ptr[n]), int(ptr[n + 1] - ptr[n])
+        dst = out[6 * n:6 * n + 6]
+        dst[3:] = 0
+        trans = dst[:3] if plan.wide else np.empty((3, W), kes[0].dtype)
+        trans[:] = 0
+        window = {"first": 0}
+
+        def fetch(t):
+            window.update(first=t, ids=pairs[lo + t:lo + min(t + 32, count)],
+                          starts=pos[lo + t:lo + min(t + 32, count), :4])
+
+        def id_at(t):
+            if t >= window["first"] + 32:
+                fetch(t)
+            return int(window["ids"][t - window["first"]])
+
+        fetch(0)
+        b, t = 0, 0
+        while t < count:
+            while offsets[b + 1] <= _decode(id_at(t)):
+                b += 1
             _, npe, dm = plan.blocks[b]
-            e, a = divmod(q - offsets[b], npe)
-            band = kes[b][e, a * dm:(a + 1) * dm].reshape(dm, npe, dm)
+            flat = kes[b].reshape(-1)
             di = np.arange(dm)[:, None, None]
-            run = np.where(di >= 3, 2 + np.arange(npe)[None, :, None],
-                           np.arange(npe)[None, :, None])
-            slots = pos[t][run] + np.arange(dm)[None, None, :]
-            rows = np.broadcast_to(di, band.shape)
-            if p < 0:
-                for bb in range(npe):
-                    row[rows[:, bb], slots[:, bb]] += band[:, bb]
-            else:
-                row[rows, slots] += band
-        out[6 * n:6 * n + 6] = row
+            k = np.broadcast_to(np.where(di >= 3, 2, 0)
+                                + np.arange(npe)[None, :, None], (dm, npe, dm))
+            rows = np.broadcast_to(di, (dm, npe, dm))
+            dj = np.broadcast_to(np.arange(dm)[None, None, :], (dm, npe, dm))
+            while True:
+                stored = id_at(t)
+                q = _decode(stored) - offsets[b]
+                band = flat[q * dm * npe * dm:(q + 1) * dm * npe * dm]
+                band = band.reshape(dm, npe, dm)
+                if plan.kinds[b] == km6.KIND_GENERIC:
+                    starts = pos[lo + t, :npe]
+                else:
+                    starts = window["starts"][t - window["first"]]
+                slots = starts[k] + dj
+                for bb in (range(npe) if stored < 0 else [None]):
+                    sel = np.broadcast_to(
+                        True if bb is None
+                        else np.arange(npe)[None, :, None] == bb, band.shape)
+                    tr = sel & (rows < 3)
+                    trans[rows[tr], slots[tr]] += band[tr]
+                    ro = sel & (rows >= 3)
+                    dst[rows[ro], slots[ro]] += band[ro]
+                t += 1
+                if t >= count:
+                    break
+                if _decode(id_at(t)) >= offsets[b + 1]:
+                    break
+        if not plan.wide:
+            dst[:3] = trans
     return out
 
 
 def _collapsed(model):
-    """``model`` with its first tet's node 3 replaced by its node 2: an
-    element that names a node twice."""
+    """``model`` with its first element's last node replaced by the one
+    before it: an element that names a node twice."""
     blk = model.solid_blocks[0]
     el = np.array(blk.elements)
-    el[0, 3] = el[0, 2]
+    el[0, -1] = el[0, -2]
     return jmx.MixedModel(**dict(
         model.__dict__, solid_blocks=[ElementBlock(el, blk.element,
                                                    blk.material)]))
 
 
-@pytest.mark.parametrize("name", ["spine", "orphan", "collapsed"])
-def test_kernel_plan_walk_matches_plain(name):
+def _plan_args(ts):
+    """``build_mixed_plan``'s arguments for the port system ``ts``."""
+    blocks = ts.solid_blocks + ts.beam_blocks
+    return (ts.n_nodes, ts.pattern.width, [b.elements for b in blocks],
+            [3] * len(ts.solid_blocks) + [6] * len(ts.beam_blocks),
+            ts._block_positions, "cpu")
+
+
+@pytest.mark.parametrize("name", ["spine", "orphan", "collapsed", "wide",
+                                  "hex-spine"])
+def test_kernel_plan_walk_matches_plain(name, monkeypatch):
     """The plan walk is bit-equal to the plain version (and to femcy_tpu's
     scatter) on seeded random element matrices, in f32 and f64; the CPU
-    wrapper runs the plain version and counts no launch."""
-    model = _collapsed(_stiffened()) if name == "collapsed" else MODELS[name]()
+    wrapper runs the plain version and counts no launch.  "wide" is the
+    spine's plan built wide (its shared row cut below its width);
+    "hex-spine" a C3D8 block of the generic kind, its first hex
+    collapsed."""
+    model = {"collapsed": lambda: _collapsed(_stiffened()),
+             "wide": _stiffened,
+             "hex-spine": lambda: _collapsed(_hex_spine())}.get(
+                 name, MODELS.get(name))()
     js, ts, _ = _systems(model)
     plan = ts._plan
-    if name == "collapsed":
-        n_flagged = int((plan.pairs < 0).sum())
-        assert n_flagged == 4  # the collapsed element's four pairs
+    if name == "wide":
+        monkeypatch.setattr(km6, "SHARED_ROW_BYTES",
+                            3 * 8 * (ts.pattern.width - 1))
+        plan = km6.build_mixed_plan(*_plan_args(ts))
+    assert plan.wide == (name == "wide")
+    assert plan.positions.dtype == (torch.int32 if plan.wide else torch.int16)
+    kinds = {"hex-spine": (km6.KIND_GENERIC, km6.KIND_BEAM)}.get(
+        name, (km6.KIND_TET, km6.KIND_BEAM))
+    assert plan.kinds == kinds and plan.stride == (8 if name == "hex-spine"
+                                                   else 4)
+    n_flagged = int((plan.pairs < 0).sum())
+    if name in ("collapsed", "hex-spine"):
+        # the collapsed element's pairs
+        assert n_flagged == model.solid_blocks[0].elements.shape[1]
+    else:
+        assert n_flagged == 0
     for dtype in (np.float32, np.float64):
         kes = _element_matrices(ts, seed=5, dtype=dtype)
         before = km6.scatter.launches
@@ -483,21 +570,26 @@ def test_kernel_plan_walk_matches_plain(name):
 
 
 def test_plan_refuses_a_row_group_past_the_shared_row(monkeypatch):
-    """A node row group longer than SHARED_ROW_BYTES is refused; one that
-    just fits builds the same int16 plan as the system's."""
-    model = convert.mixed_model_from(_stiffened())
+    """Past SHARED_ROW_BYTES the plan no longer refuses: it is wide (int32
+    run starts, the same pairs), and its walk equals the plain version;
+    translation rows that just fit build the system's int16 plan."""
     _, ts, _ = _systems(_stiffened())
-    args = (ts.n_nodes, ts.pattern.width,
-            [b.elements for b in model.solid_blocks + model.beam_blocks],
-            [3, 6], ts._block_positions, "cpu")
-    monkeypatch.setattr(km6, "SHARED_ROW_BYTES", 6 * 8 * ts.pattern.width)
+    args = _plan_args(ts)
+    monkeypatch.setattr(km6, "SHARED_ROW_BYTES", 3 * 8 * ts.pattern.width)
     fits = km6.build_mixed_plan(*args)
-    assert fits.positions.dtype == torch.int16
+    assert not fits.wide and fits.positions.dtype == torch.int16
     assert torch.equal(fits.positions, ts._plan.positions)
     assert torch.equal(fits.pairs, ts._plan.pairs)
-    monkeypatch.setattr(km6, "SHARED_ROW_BYTES", 6 * 8 * (ts.pattern.width - 1))
-    with pytest.raises(ValueError, match="shared row"):
-        km6.build_mixed_plan(*args)
+    monkeypatch.setattr(km6, "SHARED_ROW_BYTES",
+                        3 * 8 * (ts.pattern.width - 1))
+    wide = km6.build_mixed_plan(*args)
+    assert wide.wide and wide.positions.dtype == torch.int32
+    assert torch.equal(wide.positions.long(), ts._plan.positions.long())
+    assert torch.equal(wide.pairs, ts._plan.pairs)
+    kes = _element_matrices(ts, seed=6)
+    np.testing.assert_array_equal(
+        _plan_walk(kes, wide),
+        km6.scatter_plain([torch.from_numpy(k) for k in kes], wide).numpy())
 
 
 def test_scatter_wrapper_rejects_bad_operands():
