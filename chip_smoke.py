@@ -284,7 +284,42 @@ Phases (any failure raises, and the script exits non-zero):
    in the solves, no other kernel, the f64 host residual at the final
    state within the Riks tolerance and the dof within 1e-6 of a
    load-controlled ``FEMSystem.solve`` of the same load.
-25. print the launch counts and the CG iterations of every path, each
+25. refinement, box: the NX=56 box of phase 5 in float32
+   (``FEMCY_TPU_X64=0`` for this phase only) with the multigrid CG and
+   ``mixed_precision_refine=True``: P3 once and P1 in the inner MG-CG
+   solves, in float32, no other kernel; the outer iterations against
+   ``EXPECTED_REFINE_OUTER``; the certificate ||b - K64 x||_inf /
+   ||b||_inf of the f64 state on the f64 host CSR operator <= 1e-6 (the
+   line at which femcy_tpu warns "stalled"), printed beside the plain
+   float32 solve's and both solutions' distance to phase 5's float64
+   MG-CG solution; the host twin's build time and a warm solve.
+26. refinement, near-incompressible: box_tets(16) at nu = 0.4999 in
+   float32, the Jacobi CG capped above any solve's count: the refined
+   f64 state within 1e-6 relative (inf-norm) of the f64 host direct
+   solve, P1 once per CG iteration; the plain float32 error beside it.
+27. Newton refinement: the pinned twist on unstructured_box_tets(12) in
+   float32 with refinement: the history against ``EXPECTED_NEWTON``, M4
+   once per evaluation, M1 also in the refinement's consistent tangents,
+   rms(r64)/rms(f) of ``dof_refined`` (f64 host internal force) < 1e-9,
+   beside the unrefined run's.
+28. dense CG: unstructured_box_tets(20) (27,783 dofs, a 6.18 GB float64
+   operator) and box_tets(12), linear, ``dense_operator_max_dof=30000``,
+   cg_eps 1e-10: within 1e-8 of the sparse Jacobi CG of the layout (M2 or
+   P1 once per iteration there, no SpMV kernel in the dense solve, whose
+   product is cuBLAS's), the counts against ``EXPECTED_CG_ITERS``; ms an
+   iteration beside the operator's bytes over 3.35 TB/s, and the product
+   alone.
+29. fused Newton: the pinned twist with ``fused_newton=True`` on the ELL
+   slice's mesh (M4, M1 and M2: the "ELL Newton" history, as the same
+   Jacobi CG runs on the same operator) and on box_tets(16) (M5, P2 and
+   P1), through ``newton_run``.
+30. device loop: the pinned twist on the ELL slice's mesh with
+   ``device_loop=True``: the records against ``EXPECTED_NEWTON``, M1 once
+   per full evaluation, M4 also once per residual probe, M2 in the CG
+   solves, the f64 host residual at the final state within 1e-8; then a
+   device loop with ``stabilize_factor`` raises ValueError and launches
+   nothing.
+31. print the launch counts and the CG iterations of every path, each
    beside the count that the deterministic kernels have always given, and
    fail on another count (a kernel changed its rounding), and the Newton
    histories beside the pinned ones; then the kernel table as one JSON
@@ -336,7 +371,8 @@ EXPECTED_CG_ITERS = {"multigrid box": 6, "jacobi box": 257, "ELL slice": 312,
                      "AMG slice": 8, "CLI, AMG": 5,
                      "two-material ELL": 314, "two-material AMG": 7,
                      "hex+wedge": 188, "CLI, multi-block": 188,
-                     "mixed box": 1125}
+                     "mixed box": 1125, "dense CG, ELL": 438,
+                     "dense CG, box": 250}
 #: the Newton cases' time schedule: the top face turned by time * pi about
 #: the box axis, 3.6 degrees in five increments.  Each increment's first
 #: Newton iterate puts its whole turn into the top element layer, 1/56
@@ -355,7 +391,11 @@ EXPECTED_NEWTON = {"box Newton": [(2, True)] * 5, "ELL Newton": [(2, True)] * 5,
                    "ELL Newton, stabilized": [(2, True)] * 5,
                    "box secant, stabilized": [(1, True)] * 5,
                    "Newton, AMG": [(1, True)] * 5,
-                   "hex+wedge Newton": [(4, True)] * 5}
+                   "hex+wedge Newton": [(4, True)] * 5,
+                   "Newton refinement": [(1, True)] * 5,
+                   "ELL Newton, fused": [(2, True)] * 5,
+                   "box fused": [(1, True)] * 5,
+                   "device loop": [(2, True)] * 5}
 #: the dissipated-energy fraction of the stabilized cases (the CLI's
 #: ``--stabilize`` and ``SolverConfig.stabilize_factor``)
 STABILIZE = 2e-4
@@ -390,6 +430,15 @@ RIKS_PRESSURE = 20.0
 EXPECTED_RIKS = [(0.10030737271675544, 2), (0.2519212172804087, 3),
                  (0.48194578134763744, 4), (0.8328704462678769, 4),
                  (1.3726049370483355, 5)]
+#: the refinement phases: the outer iterations of the float32 refinement
+#: on the NX=56 box, as the card has given them since the phase was added,
+#: and the iteration cap of the nu = 0.4999 box's Jacobi CG (above any
+#: solve's count, so each inner solve reaches cg_eps)
+EXPECTED_REFINE_OUTER = 4
+REFINE_CG_CAP = 100_000
+#: the dense CG phase: unstructured_box_tets(DENSE_NX) (27,783 dofs, a 6.2
+#: GB float64 operator) and box_tets(DENSE_BOX), dense below DENSE_MAX_DOF
+DENSE_NX, DENSE_BOX, DENSE_MAX_DOF = 20, 12, 30_000
 
 
 def check(ok: bool, what: str) -> None:
@@ -952,9 +1001,10 @@ def boundary_model(mesh, ux: float, element_type: str = "C3D4"):
     )
 
 
-def slice_run(torch, card, full_ref, preconditioner: str):
+def slice_run(torch, card, full_ref, preconditioner: str, keep=None):
     """Phases 5 and 6: the path through FEMSystem with ``preconditioner``.
-    Returns its launch counts and CG iterations."""
+    Returns its launch counts and CG iterations; with ``keep``, stores the
+    solution there (numpy, "dof")."""
     from femcy_tpu_torch import FEMSystem, LinearIsotropic, SolverConfig
     from femcy_tpu_torch.meshgen import box_tets
     from femcy_tpu_torch.solvers.dia import dia_spmv
@@ -1026,6 +1076,8 @@ def slice_run(torch, card, full_ref, preconditioner: str):
                      ("nodal", nodal)):
         check(bool(torch.isfinite(t_).all()), f"{name} not finite")
     check(np.isfinite(energy) and energy > 0.0, f"energy {energy}")
+    if keep is not None:
+        keep["dof"] = system.dof.cpu().numpy()
 
     # the assembled operator against the analytic f64 one
     values = system._assemble_values()
@@ -1816,8 +1868,9 @@ def newton_run(torch, card, label: str, mesh, config: dict, force: str,
         wall = time.perf_counter() - t0
         recs = system.timer.records[n_rec:]
         split = {k: sum(r.seconds for r in recs if r.name == k)
-                 for k in ("newton_eval", "linear_solve")}
-        evals = sum(r.name == "newton_eval" for r in recs)
+                 for k in ("newton_eval", "linear_solve", "fused_step")}
+        # a fused step is an evaluation and its CG
+        evals = sum(r.name in ("newton_eval", "fused_step") for r in recs)
         history = [(r.newton_iters, r.converged) for r in report.increments]
         return report, wall, split, evals, history, system._cg_iters_log[n_cg:]
 
@@ -1831,7 +1884,8 @@ def newton_run(torch, card, label: str, mesh, config: dict, force: str,
     print(f"{label} on {card}: {mesh.n_elements} C3D4, {mesh.n_dof} dofs, "
           f"{config}; setup {setup_s:.3f} s; first solve {wall:.3f} s "
           f"(newton_eval {split['newton_eval']:.3f} s, linear_solve "
-          f"{split['linear_solve']:.3f} s), {evals} evaluations, history "
+          f"{split['linear_solve']:.3f} s, fused_step "
+          f"{split['fused_step']:.3f} s), {evals} evaluations, history "
           f"{history}, CG iterations per solve {cg}, peak memory "
           f"{peak / 1e9:.3f} GB; launches {launches}", flush=True)
     check(report.success, f"{label}: {report.message}")
@@ -3827,6 +3881,372 @@ def riks_run(torch, card):
     return launches, history
 
 
+class _F32:
+    """FEMCY_TPU_X64=0 inside the block (systems built there run in
+    float32), the previous value after it."""
+
+    def __enter__(self):
+        import os
+
+        self.old = os.environ.get("FEMCY_TPU_X64")
+        os.environ["FEMCY_TPU_X64"] = "0"
+
+    def __exit__(self, *exc):
+        import os
+
+        if self.old is None:
+            os.environ.pop("FEMCY_TPU_X64", None)
+        else:
+            os.environ["FEMCY_TPU_X64"] = self.old
+
+
+def certificate(system, x):
+    """||b - K_64 x||_inf / ||b||_inf on the f64 host CSR operator the
+    refinement built (``system._refine_K``), eliminated with the last
+    increment's f64 host arrays (``system._host_bc``: the device's
+    prescribed values are rounded to float32)."""
+    from femcy_tpu_torch.assembly_host import dirichlet_csr_host
+
+    K_bc, b = dirichlet_csr_host(system._refine_K, *system._host_bc)
+    return float(np.abs(b - K_bc @ np.asarray(x, np.float64)).max()
+                 / np.abs(b).max())
+
+
+def refine_box_run(torch, card, mg_dof):
+    """Phase 25: mixed-precision refinement on the NX=56 box in float32
+    (the multigrid CG, P3 and P1 in float32) against the plain float32
+    solve and the float64 MG-CG solution of phase 5 (``mg_dof``).  Returns
+    (launches, outer iterations)."""
+    from femcy_tpu_torch import FEMSystem, LinearIsotropic, SolverConfig
+    from femcy_tpu_torch.meshgen import box_tets
+
+    t_phase = time.perf_counter()
+    mesh = box_tets(*FULL)
+    mat = LinearIsotropic(1000.0, 0.3)
+    inp = boundary_model(mesh, 0.01)
+    cfg = dict(preconditioner="multigrid", linear_solver="cg")
+    with _F32():
+        system = FEMSystem(mesh, mat, config=SolverConfig(
+            mixed_precision_refine=True, **cfg), device=DEVICE)
+        plain = FEMSystem(mesh, mat, config=SolverConfig(**cfg),
+                          device=DEVICE)
+    check(system.dtype == plain.dtype == torch.float32,
+          "refinement phase did not build float32 systems")
+    zero_launches()
+    t = time.perf_counter()
+    report = system.solve(inp)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    launches = read_launches()
+    outer, cg = system._refine_iters, list(system._cg_iters_log)
+    check(report.success, "refined solve reported failure")
+    check(launches["structured_fused"] == 1,
+          f"refinement: P3 launched {launches['structured_fused']} times")
+    check(launches["dia_spmv"] > 0 and len(cg) == outer > 0,
+          f"refinement: P1 {launches['dia_spmv']}, {outer} outer iterations"
+          f", inner solves {cg}")
+    for name, n in launches.items():
+        if name not in ("structured_fused", "dia_spmv"):
+            check(n == 0, f"refinement: {name} launched {n} times")
+    x = system.dof_refined
+    check(x is not None and x.dtype == np.float64
+          and bool(np.isfinite(x).all()), "refinement: no f64 state")
+    cert = certificate(system, x)
+    check(cert <= 1e-6, f"refinement certificate {cert:.3e} > 1e-6")
+    t = time.perf_counter()
+    check(plain.solve(inp).success, "plain float32 solve")
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t
+    x32 = plain.dof.cpu().numpy().astype(np.float64)
+    cert32 = certificate(system, x32)
+    scale = np.abs(mg_dof).max()
+    d_ref = float(np.abs(x - mg_dof).max() / scale)
+    d_plain = float(np.abs(x32 - mg_dof).max() / scale)
+    t = time.perf_counter()
+    check(system.solve(inp).success and system._refine_iters == outer,
+          "warm refined solve")
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t
+    check(outer == EXPECTED_REFINE_OUTER,
+          f"refinement: {outer} outer iterations, {EXPECTED_REFINE_OUTER} "
+          "expected")
+    print(f"refinement, box_tets{FULL} in float32 on {card}: {outer} outer "
+          f"iterations (MG-CG iterations {cg}), f64 host twin built in "
+          f"{system._refine_twin_seconds:.3f} s, first solve {first_s:.3f} s"
+          f", warm {warm_s:.3f} s, plain float32 solve {plain_s:.3f} s; "
+          f"||b - K64 x||/||b||: refined {cert:.3e}, plain float32 "
+          f"{cert32:.3e}; max|x - x_MG64|/max|x_MG64| (phase 5's float64 "
+          f"MG-CG at cg_eps 1e-3): refined {d_ref:.3e}, plain float32 "
+          f"{d_plain:.3e}; launches {launches}; phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    del system, plain
+    torch.cuda.empty_cache()
+    return launches, outer
+
+
+def refine_incompressible_run(torch, card):
+    """Phase 26: refinement on box_tets(16) at nu = 0.4999 in float32 with
+    the Jacobi CG (iterations uncapped up to REFINE_CG_CAP) against the
+    float64 host direct solve."""
+    import scipy.sparse.linalg as spla
+
+    from femcy_tpu_torch import FEMSystem, LinearIsotropic, SolverConfig
+    from femcy_tpu_torch.assembly_host import (assemble_csr_host,
+                                               dirichlet_csr_host)
+    from femcy_tpu_torch.bc import build_dirichlet_arrays
+    from femcy_tpu_torch.meshgen import box_tets
+    from femcy_tpu_torch.topology import build_pattern
+
+    t_phase = time.perf_counter()
+    mesh = box_tets(16, 16, 16)
+    mat = LinearIsotropic(1000.0, 0.4999)
+    inp = boundary_model(mesh, 0.01)
+    fixed, sval = build_dirichlet_arrays(inp.dirichlet_bcs, mesh, 1.0, 1.0)
+    K_bc, b = dirichlet_csr_host(
+        assemble_csr_host(mesh, build_pattern(mesh), np.asarray(mat.C)),
+        np.zeros(mesh.n_dof), fixed, sval)
+    ref = spla.spsolve(K_bc.tocsc(), b)
+    cfg = dict(linear_solver="cg", cg_max_iters=REFINE_CG_CAP)
+    out = {}
+    for refine in (True, False):
+        with _F32():
+            s = FEMSystem(mesh, mat, config=SolverConfig(
+                mixed_precision_refine=refine, **cfg), device=DEVICE)
+        zero_launches()
+        t = time.perf_counter()
+        check(s.solve(inp).success, f"nu=0.4999 solve, refine={refine}")
+        torch.cuda.synchronize()
+        x = s.dof_refined if refine else s.dof.cpu().numpy()
+        out[refine] = (float(np.abs(x - ref).max() / np.abs(ref).max()),
+                       time.perf_counter() - t, list(s._cg_iters_log),
+                       s._refine_iters, read_launches())
+    err, wall, cg, outer, launches = out[True]
+    check(max(cg) < REFINE_CG_CAP, f"nu=0.4999: an inner CG hit its cap {cg}")
+    check(launches["dia_spmv"] == sum(cg),
+          f"nu=0.4999: P1 {launches['dia_spmv']} for CG iterations {cg}")
+    check(err <= 1e-6, f"nu=0.4999 refined vs f64 direct: {err:.3e}")
+    print(f"refinement, box_tets(16) at nu=0.4999 in float32 on {card}: "
+          f"{outer} outer iterations, Jacobi CG iterations {cg}, {wall:.3f}"
+          f" s; max|x - x64|/max|x64| refined {err:.3e}, plain float32 "
+          f"{out[False][0]:.3e} ({out[False][2]} iterations); phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def newton_refine_run(torch, card):
+    """Phase 27: the pinned twist on unstructured_box_tets(INP_NX) in
+    float32 with refinement: the equilibrium quality rms(r64)/rms(f) of
+    ``dof_refined`` (f64 host internal force) below 1e-9, beside the
+    unrefined run's.  Returns (launches, history)."""
+    from femcy_tpu_torch import FEMSystem, LinearIsotropic, SolverConfig
+    from femcy_tpu_torch.assembly_host import internal_force_host
+    from femcy_tpu_torch.meshgen import unstructured_box_tets
+    from femcy_tpu_torch.user import make_rotation_dirichlet
+
+    t_phase = time.perf_counter()
+    mesh = unstructured_box_tets(INP_NX)
+    mat = LinearIsotropic(1000.0, 0.3)
+    inp = twist_model(mesh)
+    hook = make_rotation_dirichlet((0.5, 0.5, 0.0))
+
+    def quality(system, dof):
+        fixed = system._last_dirichlet[0].cpu().numpy()
+        f = internal_force_host(mesh, mat, np.asarray(dof, np.float64))
+        r = f.copy()
+        r[fixed] = 0.0
+        return float(np.sqrt(np.mean(r * r)) / np.sqrt(np.mean(f * f)))
+
+    out = {}
+    for refine in (True, False):
+        with _F32():
+            s = FEMSystem(mesh, mat, True, SolverConfig(
+                mixed_precision_refine=refine), device=DEVICE)
+        zero_launches()
+        t = time.perf_counter()
+        report = s.solve(inp, user_dirichlet=hook)
+        torch.cuda.synchronize()
+        check(report.success, f"Newton refinement={refine}: {report.message}")
+        summary = s.timer.summary()
+        out[refine] = dict(
+            wall=time.perf_counter() - t, launches=read_launches(),
+            history=[(r.newton_iters, r.converged) for r in report.increments],
+            q=quality(s, s.dof_refined if refine
+                      else s.dof.cpu().numpy()),
+            refine_s=sum(rec.seconds for rec in s.timer.records
+                         if rec.name == "newton_refine"),
+            evals=summary["newton_eval"]["count"])
+    r, p = out[True], out[False]
+    check(r["q"] < 1e-9, f"Newton refinement quality {r['q']:.3e} >= 1e-9")
+    check(r["launches"]["internal_force"] == r["evals"]
+          and r["launches"]["ell_scatter"] > r["evals"],
+          f"Newton refinement: M4 {r['launches']['internal_force']}, M1 "
+          f"{r['launches']['ell_scatter']} for {r['evals']} evaluations")
+    want = EXPECTED_NEWTON["Newton refinement"]
+    check(r["history"] == want,
+          f"Newton refinement: history {r['history']}, {want} expected")
+    print(f"Newton refinement, unstructured_box_tets({INP_NX}) twist in "
+          f"float32 on {card}: history {r['history']}, {r['evals']} "
+          f"evaluations, solve {r['wall']:.3f} s ({r['refine_s']:.3f} s of "
+          f"it refinement: consistent tangents, LUs, f64 host residuals); "
+          f"rms(r64)/rms(f) refined {r['q']:.3e}, unrefined {p['q']:.3e} "
+          f"(history {p['history']}, {p['wall']:.3f} s); launches "
+          f"{r['launches']}; phase wall {time.perf_counter() - t_phase:.1f} "
+          "s", flush=True)
+    return r["launches"], r["history"]
+
+
+def dense_cg_run(torch, card):
+    """Phase 28: the small-model dense CG at cg_eps 1e-10 against the
+    sparse Jacobi CG of the same layout: unstructured_box_tets(DENSE_NX)
+    (ELL, ell_to_dense) and box_tets(DENSE_BOX) (DIA,
+    dia_to_dense_device).  Returns {label: (launches, iterations)}."""
+    from femcy_tpu_torch import FEMSystem, LinearIsotropic, SolverConfig
+    from femcy_tpu_torch.meshgen import box_tets, unstructured_box_tets
+    from femcy_tpu_torch.solvers.cg import ell_to_dense
+
+    t_phase = time.perf_counter()
+    mat = LinearIsotropic(1000.0, 0.3)
+    found = {}
+    for label, mesh, spmv in (
+            ("dense CG, ELL", unstructured_box_tets(DENSE_NX), "ell_spmv"),
+            ("dense CG, box", box_tets(*(DENSE_BOX,) * 3), "dia_spmv")):
+        inp = boundary_model(mesh, 0.01)
+        dofs, runs = {}, {}
+        for dense in (DENSE_MAX_DOF, 0):
+            s = FEMSystem(mesh, mat, config=SolverConfig(
+                linear_solver="cg", cg_eps=1e-10,
+                dense_operator_max_dof=dense), device=DEVICE)
+            check(s._use_dense_cg == bool(dense), f"{label}: dense route")
+            zero_launches()
+            torch.cuda.reset_peak_memory_stats()
+            check(s.solve(inp).success, f"{label}: solve")
+            torch.cuda.synchronize()
+            launches = read_launches()
+            iters = s._last_cg_iters
+            solve_s = s.timer.summary()["linear_solve"]["first"]
+            runs[dense] = (launches, iters, solve_s,
+                           torch.cuda.max_memory_allocated())
+            dofs[dense] = s.dof.cpu().numpy()
+            check(launches[spmv] == (0 if dense else iters),
+                  f"{label}: {spmv} {launches[spmv]} for {iters} iterations "
+                  f"(dense={bool(dense)})")
+            if dense and s.dia is None:
+                # the dense product alone, timed on the solve's operator
+                values, _, _ = s._linear_system(
+                    torch.zeros_like(s.dof), *s._last_dirichlet)
+                A = ell_to_dense(values, s._arrs["colidx"], mesh.n_dof)
+                v = torch.ones_like(s.dof)
+                mv_ms = cuda_ms(lambda: torch.mv(A, v), 10)
+                del A, values
+        rel = float(np.abs(dofs[DENSE_MAX_DOF] - dofs[0]).max()
+                    / np.abs(dofs[0]).max())
+        check(rel <= 1e-8, f"{label}: dense vs sparse CG {rel:.3e}")
+        launches, iters, solve_s, peak = runs[DENSE_MAX_DOF]
+        n = mesh.n_dof
+        bound_ms = (n * n + 2 * n) * 8 / HBM_BYTES_PER_S * 1e3
+        extra = (f", torch.mv alone {mv_ms:.4f} ms" if spmv == "ell_spmv"
+                 else "")
+        print(f"{label} on {card}: {mesh.n_elements} C3D4, {n} dofs, dense "
+              f"operator {n * n * 8 / 1e9:.3f} GB, peak memory "
+              f"{peak / 1e9:.3f} GB; dense CG {iters} iterations in "
+              f"{solve_s:.3f} s ({solve_s / iters * 1e3:.4f} ms an iteration"
+              f"{extra}; bound {bound_ms:.4f} ms: the operator over 3.35 "
+              f"TB/s), sparse CG {runs[0][1]} iterations in "
+              f"{runs[0][2]:.3f} s; max|dx|/max|x| {rel:.3e}; launches "
+              f"{launches}", flush=True)
+        found[label] = (launches, iters)
+    print(f"dense CG phase wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return found
+
+
+def device_loop_run(torch, card):
+    """Phase 30: the pinned twist on unstructured_box_tets(56) through the
+    device loop (config.device_loop): its records against EXPECTED_NEWTON,
+    M1 once per full evaluation, M4 once per evaluation and per
+    residual probe, M2 in the CG solves, the f64 host residual at the
+    final state within 1e-8 of the last record's; then an unsupported
+    configuration raises ValueError and launches nothing.  Returns
+    (launches, history)."""
+    from femcy_tpu_torch import FEMSystem, LinearIsotropic, SolverConfig
+    from femcy_tpu_torch.assembly_host import internal_force_host
+    from femcy_tpu_torch.meshgen import unstructured_box_tets
+    from femcy_tpu_torch.user import make_rotation_dirichlet
+
+    t_phase = time.perf_counter()
+    label = "device loop"
+    mesh = unstructured_box_tets(UNSTRUCT[-1])
+    mat = LinearIsotropic(1000.0, 0.3)
+    inp = twist_model(mesh)
+    hook = make_rotation_dirichlet((0.5, 0.5, 0.0))
+    system = FEMSystem(mesh, mat, True, SolverConfig(device_loop=True),
+                       device=DEVICE)
+    counts = {"eval": 0, "probe": 0}
+    evaluate, probe = system._newton_eval, system._residual_rms
+
+    def counted_eval(*a):
+        counts["eval"] += 1
+        return evaluate(*a)
+
+    def counted_probe(*a):
+        counts["probe"] += 1
+        return probe(*a)
+
+    system._newton_eval, system._residual_rms = counted_eval, counted_probe
+    zero_launches()
+    t = time.perf_counter()
+    report = system.solve(inp, user_dirichlet=hook)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = read_launches()
+    history = [(r.newton_iters, r.converged) for r in report.increments]
+    check(report.success, f"{label}: {report.message}")
+    check(launches["ell_scatter"] == counts["eval"]
+          and launches["internal_force"] == counts["eval"] + counts["probe"],
+          f"{label}: M1 {launches['ell_scatter']}, M4 "
+          f"{launches['internal_force']} for {counts}")
+    check(launches["ell_spmv"] == sum(system._cg_iters_log) > 0,
+          f"{label}: M2 {launches['ell_spmv']} for CG iterations "
+          f"{system._cg_iters_log}")
+    for name, n in launches.items():
+        if name not in ("ell_scatter", "internal_force", "ell_spmv"):
+            check(n == 0, f"{label}: {name} launched {n} times")
+    fixed = system._last_dirichlet[0].cpu().numpy()
+    r = internal_force_host(mesh, mat, system.dof.cpu().numpy())
+    r[fixed] = 0.0
+    rms_host = float(np.sqrt(np.mean(r * r)))
+    rel = abs(report.increments[-1].residual - rms_host) / rms_host
+    check(rel <= 1e-8, f"{label}: last residual vs f64 host {rel:.3e}")
+    want = EXPECTED_NEWTON[label]
+    check(history == want, f"{label}: history {history}, {want} expected")
+    records = [(round(r.time, 6), round(r.dt, 6), r.newton_iters,
+                r.converged) for r in report.increments]
+    print(f"{label} on {card}: {mesh.n_elements} C3D4; solve {wall:.3f} s, "
+          f"{counts['eval']} evaluations and {counts['probe']} residual "
+          f"probes, CG iterations {system._cg_iters_log}; records (time1, "
+          f"dt after, iters, converged) {records}; f64 host residual rel "
+          f"{rel:.3e}; launches {launches}", flush=True)
+    del system
+    torch.cuda.empty_cache()
+
+    # an unsupported configuration raises on the card and runs nothing
+    small = unstructured_box_tets(4)
+    bad = FEMSystem(small, mat, True, SolverConfig(
+        device_loop=True, stabilize_factor=2e-4), device=DEVICE)
+    zero_launches()
+    try:
+        bad.solve(twist_model(small), user_dirichlet=hook)
+        raised = ""
+    except ValueError as exc:
+        raised = str(exc)
+    check(raised.startswith("device_loop:"),
+          f"device_loop with stabilize_factor did not raise ({raised!r})")
+    check(not any(read_launches().values()) and not bad.timer.records,
+          "the refused device loop launched work")
+    print(f"{label}: stabilize_factor refused on the card ({raised!r}); "
+          f"phase wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, history
+
+
 def main() -> int:
     card = card_line()
     print(card, flush=True)
@@ -3849,8 +4269,9 @@ def main() -> int:
     p2_launches = two_stage_run(torch, full_ref)
     box_force_checks(torch, card, results)
     iters = {}
+    mg_keep = {}
     launches, iters["multigrid box"] = slice_run(torch, card, full_ref,
-                                                 "multigrid")
+                                                 "multigrid", keep=mg_keep)
     by_path = {"multigrid box": dict(launches)}
     small_box_check(torch, (8, 8, 8), "multigrid")
     by_path["jacobi box"], iters["jacobi box"] = slice_run(
@@ -3963,6 +4384,26 @@ def main() -> int:
     by_path["Riks"], riks_history = riks_run(torch, card)
     print(f"mixed and Riks phases: wall {time.perf_counter() - t:.1f} s",
           flush=True)
+    t = time.perf_counter()
+    by_path["refinement, box"], _ = refine_box_run(torch, card,
+                                                   mg_keep.pop("dof"))
+    refine_incompressible_run(torch, card)
+    by_path["Newton refinement"], histories["Newton refinement"] = (
+        newton_refine_run(torch, card))
+    for path, (counts, n) in dense_cg_run(torch, card).items():
+        by_path[path], iters[path] = counts, n
+    for label, mesh, force, tangent in (
+            ("ELL Newton, fused", unstructured_box_tets(UNSTRUCT[-1]),
+             "internal_force", "ell_scatter"),
+            ("box fused", box_tets(16, 16, 16), "structured_force",
+             "structured_accumulate")):
+        by_path[label], histories[label] = newton_run(
+            torch, card, label, mesh, dict(fused_newton=True), force,
+            tangent, warm=False)
+    by_path["device loop"], histories["device loop"] = device_loop_run(
+        torch, card)
+    print(f"refinement, dense CG, fused and device-loop phases: wall "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
     launches["mixed_scatter"] = by_path["mixed box"]["mixed_scatter"]
     launches["structured_accumulate"] = by_path["box Newton"][
         "structured_accumulate"]

@@ -25,6 +25,7 @@ from femcy_tpu_torch.solvers.amg import AlgebraicMultigrid, _device_levels
 from femcy_tpu_torch.solvers.bell import BellPlan
 from femcy_tpu_torch.solvers.dia import DIAPattern
 from femcy_tpu_torch.topology import ELLPattern
+from femcy_tpu_torch.utils.device import resolve_device
 
 _ELEMENT_BY_NAME = {e.name: e for e in ELEMENT_REGISTRY.values()}
 
@@ -117,10 +118,12 @@ def bell_plan_from(ref_plan) -> BellPlan:
     )
 
 
-def amg_from(ref_amg, device="cpu", dtype=torch.float64) -> AlgebraicMultigrid:
+def amg_from(ref_amg, device="cuda", dtype=torch.float64) -> AlgebraicMultigrid:
     """An AlgebraicMultigrid holding the reference hierarchy's level
     arrays (its bf16 leaves read through float32, which is exact) and
-    coarsest inverse, without a setup of its own."""
+    coarsest inverse, without a setup of its own; on the card unless
+    ``device="cpu"`` (``utils.device.resolve_device``)."""
+    device = resolve_device(device)
     def arr(a, dt=np.float32):
         return None if a is None else np.array(a, dt)
 
@@ -135,7 +138,7 @@ def amg_from(ref_amg, device="cpu", dtype=torch.float64) -> AlgebraicMultigrid:
                 s[key] = (arr(v), arr(c, np.int32))
         staged.append(s)
     amg = AlgebraicMultigrid.__new__(AlgebraicMultigrid)
-    amg.device = torch.device(device)
+    amg.device = device
     amg.dtype = dtype
     amg.smooth_steps = int(ref_amg.smooth_steps)
     amg.cheby_alpha = float(ref_amg.cheby_alpha)
@@ -149,9 +152,11 @@ def amg_from(ref_amg, device="cpu", dtype=torch.float64) -> AlgebraicMultigrid:
     return amg
 
 
-def dof_from(dof, device="cpu", dtype=torch.float64) -> torch.Tensor:
-    """A dof vector given as numpy (e.g. ``np.asarray(system.dof)``)."""
-    return torch.tensor(np.asarray(dof), dtype=dtype, device=device)
+def dof_from(dof, device="cuda", dtype=torch.float64) -> torch.Tensor:
+    """A dof vector given as numpy (e.g. ``np.asarray(system.dof)``), on
+    the card unless ``device="cpu"``."""
+    return torch.tensor(np.asarray(dof), dtype=dtype,
+                        device=resolve_device(device))
 
 
 def element_block_from(ref_block):

@@ -60,7 +60,7 @@ from femcy_tpu_torch.materials import Material
 from femcy_tpu_torch.mesh import FEMesh
 from femcy_tpu_torch.solvers.amg import AlgebraicMultigrid
 from femcy_tpu_torch.solvers.bell import build_bell_plan
-from femcy_tpu_torch.solvers.cg import pcg_solve
+from femcy_tpu_torch.solvers.cg import dense_pcg_solve, ell_to_dense, pcg_solve
 from femcy_tpu_torch.solvers.direct import direct_solve
 from femcy_tpu_torch.system import (
     SolveReport,
@@ -380,7 +380,8 @@ class MultiBlockSystem:
     def _solve_values(self, values, b, fixed):
         """Linear solve of the assembled (values, b) by femcy_tpu's ladder:
         host direct below the crossover, else the AMG-PCG
-        (preconditioner="amg"), else the Jacobi ELL-PCG."""
+        (preconditioner="amg"), else the dense small-model CG
+        (``dense_operator_max_dof``), else the Jacobi ELL-PCG."""
         cfg = self.config
         use_direct = cfg.linear_solver == "direct" or (
             cfg.linear_solver == "auto"
@@ -399,9 +400,19 @@ class MultiBlockSystem:
                 b, lambda v: k_bell.spmv(fine, v), eps=cfg.cg_eps,
                 max_iters=max_iters)
             return cg_done(self, self.n_dof, "AMG-CG", x, iters, rmax, b)
-        x, iters, rmax = pcg_solve(
-            values, self._arrs["colidx"], self._arrs["diag_slot"], b,
-            eps=cfg.cg_eps, max_iters=cfg.cg_max_iters, spmv=self._spmv)
+        if 0 < cfg.dense_operator_max_dof and (
+                self.n_dof <= cfg.dense_operator_max_dof):
+            # the small-model dense CG: the union operator placed into a
+            # dense matrix once per solve
+            x, iters, rmax = dense_pcg_solve(
+                ell_to_dense(values, self._arrs["colidx"], self.n_dof), b,
+                eps=cfg.cg_eps, max_iters=cfg.cg_max_iters,
+                block_dm=(self.dm if cfg.preconditioner == "block_jacobi"
+                          else 0))
+        else:
+            x, iters, rmax = pcg_solve(
+                values, self._arrs["colidx"], self._arrs["diag_slot"], b,
+                eps=cfg.cg_eps, max_iters=cfg.cg_max_iters, spmv=self._spmv)
         return cg_done(self, self.n_dof, "CG", x, iters, rmax, b)
 
     def _ensure_amg(self, fixed):

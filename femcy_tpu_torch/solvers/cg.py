@@ -1,7 +1,9 @@
-"""Jacobi-preconditioned conjugate gradient on the padded ELL layout.
+"""Jacobi-preconditioned conjugate gradient on the padded ELL layout, and
+the small-model dense CG.
 
 Torch counterpart of ``femcy_tpu.solvers.cg`` (``ell_spmv``,
-``pcg_solve``): the same algorithm and convergence rule as the reference,
+``pcg_solve``, ``ell_to_dense``, ``dense_pcg_solve``): the same algorithm
+and convergence rule as the reference,
 ||r||_inf < eps * ||r0||_inf with eps defaulting to 1e-3
 (conjugateGradientSolver.py:15), at most n_dof iterations (:109).  The
 loop is the port's generic ``solvers.dia.pcg``.  ``ell_spmv`` here is the
@@ -13,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from femcy_tpu_torch.linalg import inv_small
 from femcy_tpu_torch.solvers.dia import pcg
 
 
@@ -56,3 +59,49 @@ def pcg_solve(values, colidx, diag_slot, b, eps: float = 1.0e-3,
         return minv * r
 
     return pcg(apply_a, apply_m, b, eps, max_iters)
+
+
+def ell_to_dense(values, colidx, n: int):
+    """Padded ELL values -> dense (n, n) operator, one indexed add.
+
+    Padding slots hold value 0 at column 0, so a row's true (r, 0) entry
+    shares its target with them: the add keeps it (a plain indexed write
+    could let a padding zero overwrite it)."""
+    rows = torch.arange(n, device=values.device)[:, None].expand_as(colidx)
+    A = values.new_zeros((n, n))
+    return A.index_put_((rows, colidx), values, accumulate=True)
+
+
+def dense_pcg_solve(A, b, eps: float = 1.0e-3, max_iters: int = 0,
+                    block_dm: int = 0):
+    """Jacobi PCG with a DENSE operator: A d is one (n, n) @ (n,) product.
+
+    Same stopping rule as ``pcg_solve``; ``max_iters <= 0`` means n.
+    ``block_dm`` > 0 uses the dm x dm node-block Jacobi preconditioner
+    (closed-form small inverses; a block whose trace is 0, a fully
+    eliminated node, takes the identity, as femcy_tpu's does).  Returns
+    (x, iterations, max|r|)."""
+    n = b.shape[0]
+    if max_iters <= 0:
+        max_iters = n
+    if block_dm > 0:
+        nb = n // block_dm
+        node = torch.arange(nb, device=A.device)
+        blocks = A.reshape(nb, block_dm, nb, block_dm)[node, :, node, :]
+        empty = blocks.diagonal(dim1=-2, dim2=-1).sum(-1) == 0.0
+        eye = torch.eye(block_dm, dtype=A.dtype, device=A.device)
+        minv_blocks = inv_small(torch.where(empty[:, None, None], eye, blocks))
+
+        def apply_m(r):
+            return torch.einsum(
+                "aij,aj->ai", minv_blocks, r.reshape(nb, block_dm)
+            ).reshape(-1)
+
+    else:
+        diag = A.diagonal()
+        minv = torch.where(diag != 0.0, 1.0 / diag, torch.zeros_like(diag))
+
+        def apply_m(r):
+            return minv * r
+
+    return pcg(lambda d: torch.mv(A, d), apply_m, b, eps, max_iters)

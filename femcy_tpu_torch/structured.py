@@ -452,6 +452,22 @@ def analytic_structured_dia_values(
     return V.reshape(-1, K)
 
 
+def dia_to_dense_device(values, offsets):
+    """(n, K) DIA values -> (n, n) dense, on the values' device: the
+    small-model dense CG's operator (FEMSystem._dense_cg_core).  Slots whose
+    column falls outside the matrix are clipped onto column 0 or n - 1 with
+    value 0; the indexed add keeps the true entries they share a target
+    with."""
+    n, K = values.shape
+    rows = torch.arange(n, device=values.device)[:, None]
+    cols = rows + torch.as_tensor(list(offsets), device=values.device)[None, :]
+    valid = (cols >= 0) & (cols < n)
+    contrib = torch.where(valid, values, values.new_zeros(()))
+    A = values.new_zeros((n, n))
+    return A.index_put_((rows.expand(n, K), cols.clamp(0, n - 1)), contrib,
+                        accumulate=True)
+
+
 def dia_dirichlet_linear_numpy(
     values: np.ndarray, offsets, diag_idx: int, fixed: np.ndarray
 ) -> np.ndarray:

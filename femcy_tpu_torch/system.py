@@ -46,7 +46,15 @@ three layouts:
   per-increment residual reference (kept in checkpoints), the failure
   diagnosis and static stabilization (``stabilize_factor``: a viscous
   force on the volume-lumped diagonal, added to the residual before the
-  Dirichlet treatment and to the tangent's diagonal on every route).
+  Dirichlet treatment and to the tangent's diagonal on every route);
+- the solver extensions of femcy_tpu's slice G: the dense small-model CG
+  (``dense_operator_max_dof``: the eliminated operator placed into a
+  dense matrix once per solve, every matvec one dense product), the fused
+  Newton step (``fused_newton``: evaluation and CG in one step, ``du``
+  riding in ``run_newton``'s values slot), mixed-precision refinement
+  (``mixed_precision_refine``: float32 solves corrected against the f64
+  host operator or the f64 host internal force) and the device loop
+  (``device_loop``, device_loop.py).
 
 Every tensor lives on the ``device`` given to ``FEMSystem`` (``"cuda"`` by
 default, ``"cpu"`` when asked for; CUDA without a card raises) in one float
@@ -79,7 +87,7 @@ from femcy_tpu_torch.materials import Material
 from femcy_tpu_torch.mesh import FEMesh
 from femcy_tpu_torch.solvers.amg import AlgebraicMultigrid
 from femcy_tpu_torch.solvers.bell import build_bell_plan, plan_node_graph
-from femcy_tpu_torch.solvers.cg import pcg_solve
+from femcy_tpu_torch.solvers.cg import dense_pcg_solve, ell_to_dense, pcg_solve
 from femcy_tpu_torch.solvers.dia import (
     DIAPattern,
     build_dia_pattern,
@@ -92,6 +100,7 @@ from femcy_tpu_torch.solvers.direct import direct_solve, factorize
 from femcy_tpu_torch.solvers.multigrid import StructuredMultigrid, coarsen_grids
 from femcy_tpu_torch.structured import (
     build_structured_plan,
+    dia_to_dense_device,
     structured_assemble_coords,
     structured_dia_scatter,
     structured_element_nodes,
@@ -316,12 +325,14 @@ def run_increments(system, time_incs, boundary, on_newton=None,
 
 
 def cg_done(system, n_dof: int, what: str, x, iters: int, rmax, b):
-    """Log, warn at the iteration cap, and record on ``system`` (its
-    ``_last_cg_iters`` and ``_cg_iters_log``) the iterations of a finished
-    CG solve; returns ``x``."""
+    """Log, warn at the iteration cap (unless ``system._suppress_cg_warn``:
+    refinement's inner solves truncate by design), and record on
+    ``system`` (its ``_last_cg_iters`` and ``_cg_iters_log``) the
+    iterations of a finished CG solve; returns ``x``."""
     if system.config.verbose:
         logger.info("%s: %d iters, ||r||_inf=%.3e", what, iters, float(rmax))
-    warn_cg_cap(system.config, n_dof, iters, rmax, b)
+    if not getattr(system, "_suppress_cg_warn", False):
+        warn_cg_cap(system.config, n_dof, iters, rmax, b)
     system._last_cg_iters = iters
     system._cg_iters_log.append(iters)
     return x
@@ -393,11 +404,22 @@ class FEMSystem:
         self.device = device
         self.dtype = dtype
 
+        # near-incompressible models condition the operator like
+        # E/(1-2*nu): float32 loses O(1%) of the stress.  Refinement engages
+        # on the linear path and the standard Newton path; the fused step
+        # has no host residual hook, so the warning stays live there
         nu = getattr(material, "poisson_ratio", 0.0)
-        if nu >= 0.495 and dtype == torch.float32:
+        fused_nl = self.geometric_nonlinear and config.fused_newton
+        if (nu >= 0.495 and dtype == torch.float32
+                and (not config.mixed_precision_refine or fused_nl)):
             logger.warning(
                 "near-incompressible material (nu=%.4f) in float32: expect "
-                "O(1%%) stress error; use float64 (the default)", nu,
+                "O(1%%) stress error; set "
+                "SolverConfig(mixed_precision_refine=True) to recover f64 "
+                "accuracy with float32 bulk work (linear and standard-Newton "
+                "analyses%s), or use float64 (the default, FEMCY_TPU_X64=1)",
+                nu, " -- NOT the fused_newton path used here" if fused_nl
+                else "",
             )
 
         sync = torch.cuda.synchronize if device.type == "cuda" else None
@@ -493,6 +515,29 @@ class FEMSystem:
         self._stab_diag: Optional[torch.Tensor] = None
         self._stab_ref: Optional[torch.Tensor] = None
         self._stab_scale: Optional[torch.Tensor] = None
+        #: mixed-precision refinement (config.mixed_precision_refine): the
+        #: increment's f64 host (rhs, fixed, sval), the f64 host operator
+        #: (built at the first linear refinement, its wall in
+        #: ``_refine_twin_seconds``), the linear refinement's cached LU and
+        #: its last outer iteration count
+        self._host_bc = None
+        self._refine_K = None
+        self._refine_twin_seconds: Optional[float] = None
+        self._refine_reuse: Optional[dict] = None
+        self._refine_iters: int = 0
+        #: set while refinement's inner solves run: they truncate by design
+        self._suppress_cg_warn = False
+        #: f64 master state of the last refinement: the certified solution,
+        #: exact beyond the float32 representation floor of ``self.dof``
+        self.dof_refined: Optional[np.ndarray] = None
+        self._warned_fused_refine = False
+        #: the cached device-loop program (config.device_loop)
+        self._device_loop_prog = None
+        #: small-model dense CG (config.dense_operator_max_dof)
+        self._use_dense_cg = (
+            0 < config.dense_operator_max_dof
+            and mesh.n_dof <= config.dense_operator_max_dof
+        )
 
         #: (prep, apply) of the SpMV kernel of the layout (P1 on DIA, M2 on
         #: ELL); None = the plain torch SpMV (and under "amg", whose route
@@ -503,8 +548,9 @@ class FEMSystem:
             self._spmv = make_spmv(mesh.n_dof, self.dia.offsets, device)
         else:
             self._spmv = ell_spmv.make_spmv(self.pattern, device)
-        # block Jacobi runs on the DIA layout only; the ELL PCG keeps the
-        # scalar Jacobi under "block_jacobi", as femcy_tpu's does
+        # block Jacobi runs on the DIA layout and in the dense CG; the ELL
+        # PCG keeps the scalar Jacobi under "block_jacobi", as femcy_tpu's
+        # does
         self._block_dm = (
             mesh.dm if config.preconditioner == "block_jacobi" else 0
         )
@@ -629,17 +675,76 @@ class FEMSystem:
             values = self._scatter(Ke)
         else:
             values = self._assemble_values(coords)
-        if self._stab_diag is not None:
-            # static stabilization: the tangent term matching the viscous
-            # force folded into f_int (every route's values are fresh)
-            d = self._stab_scale * self._stab_diag
-            if self.dia is not None:
-                values[:, self.dia.diag_idx] += d
-            else:
-                values.view(-1)[a["diag_slot"]] += d
+        self._add_stab_diag(values)
         residual = f_int - rhs
         values, residual = self._dirichlet_newton(values, residual, fixed)
         return dof, values, residual, _rms(residual), vol
+
+    def _add_stab_diag(self, values):
+        """Static stabilization's tangent term, in place: the diagonal
+        matching the viscous force folded into f_int by
+        ``_internal_force_parts`` (every route's values are fresh)."""
+        if self._stab_diag is None:
+            return
+        d = self._stab_scale * self._stab_diag
+        if self.dia is not None:
+            values[:, self.dia.diag_idx] += d
+        else:
+            values.view(-1)[self._arrs["diag_slot"]] += d
+
+    def _residual_rms(self, dof, rhs, fixed, sval):
+        """(pinned dof, rms of the Dirichlet-zeroed Newton residual) with no
+        tangent: the device loop's line-search and convergence probe."""
+        dof, _, _, _, _, f_int = self._internal_force_parts(dof, fixed, sval)
+        residual = torch.where(fixed, f_int.new_zeros(()), f_int - rhs)
+        return dof, _rms(residual)
+
+    def _fused_step(self, dof, rhs, fixed, sval):
+        """One fused Newton iteration (config.fused_newton): the evaluation
+        and its CG.  Returns (pinned dof, du, rms residual at dof, vol)."""
+        dof, values, residual, res, vol = self._newton_eval(
+            dof, rhs, fixed, sval)
+        return dof, self._step_solve(values, residual), res, vol
+
+    def _step_solve(self, values, residual):
+        """The Newton solve of the fused step and the device loop: the
+        dense CG below ``dense_operator_max_dof``, else the Jacobi PCG of
+        the layout (block-Jacobi on DIA under "block_jacobi"), whatever
+        ``preconditioner`` and ``linear_solver`` say -- femcy_tpu's
+        in-program dispatch.  Records the iterations but never warns at
+        the cap, as femcy_tpu's does not."""
+        cfg = self.config
+        if self._use_dense_cg:
+            du, iters, _ = self._dense_cg_core(values, residual)
+        elif self.dia is not None:
+            du, iters, _ = dia_pcg_solve(
+                values, self.dia.offsets, self.dia.diag_idx, residual,
+                eps=cfg.cg_eps, max_iters=cfg.cg_max_iters,
+                block_dm=self._block_dm, spmv=self._spmv,
+            )
+        else:
+            du, iters, _ = pcg_solve(
+                values, self._arrs["colidx"], self._arrs["diag_slot"],
+                residual, eps=cfg.cg_eps, max_iters=cfg.cg_max_iters,
+                spmv=self._spmv,
+            )
+        self._last_cg_iters = iters
+        self._cg_iters_log.append(iters)
+        return du
+
+    def _dense_cg_core(self, values, b):
+        """Small-model dense CG: the eliminated layout values -> a dense
+        (n, n) operator (one indexed add, built once per solve and freed
+        with it) -> the dense-matvec Jacobi (or node-block-Jacobi) PCG.
+        Returns (x, iterations, max|r|)."""
+        cfg = self.config
+        if self.dia is not None:
+            A = dia_to_dense_device(values, self.dia.offsets)
+        else:
+            A = ell_to_dense(values, self._arrs["colidx"], self.mesh.n_dof)
+        return dense_pcg_solve(A, b, eps=cfg.cg_eps,
+                               max_iters=cfg.cg_max_iters,
+                               block_dm=self._block_dm)
 
     def _linear_system(self, rhs, fixed, sval):
         """Assemble + Dirichlet-eliminate for the linear path, always on the
@@ -665,7 +770,11 @@ class FEMSystem:
         ``reuse``: optional dict carrying a cached LU across Newton
         iterations (modified Newton, config.newton_jacobian_reuse); callers
         set reuse["refresh"]=True to force refactorization.  The CG paths
-        have nothing to reuse and ignore it."""
+        have nothing to reuse and ignore it.
+
+        The CG ladder is femcy_tpu's: the multigrid, the AMG, the dense
+        small-model CG (``dense_operator_max_dof``), then the Jacobi PCG of
+        the layout."""
         cfg = self.config
         use_direct = cfg.linear_solver == "direct" or (
             cfg.linear_solver == "auto"
@@ -698,7 +807,9 @@ class FEMSystem:
                 max_iters=max_iters,
             )
             return cg_done(self, self.mesh.n_dof, "AMG-CG", x, iters, rmax, b)
-        if self.dia is not None:
+        if self._use_dense_cg:
+            x, iters, rmax = self._dense_cg_core(values, b)
+        elif self.dia is not None:
             x, iters, rmax = dia_pcg_solve(
                 values, self.dia.offsets, self.dia.diag_idx, b,
                 eps=cfg.cg_eps, max_iters=cfg.cg_max_iters,
@@ -710,6 +821,152 @@ class FEMSystem:
                 eps=cfg.cg_eps, max_iters=cfg.cg_max_iters, spmv=self._spmv,
             )
         return cg_done(self, self.mesh.n_dof, "CG", x, iters, rmax, b)
+
+    def _refine_linear_solve(self, rhs_np, fixed_np, sval_np, fixed_d,
+                             sval_d):
+        """Mixed-precision iterative refinement (femcy_tpu's
+        ``_refine_linear_solve``): x_{k+1} = x_k + solve(b - K_f64 x_k),
+        the residual on the host against the exactly-assembled f64 CSR
+        operator (assembly_host), every inner solve the regular
+        ``_solve_linear_system`` in the system's dtype on the eliminated
+        device operator (one cached LU on the direct path).  Returns the
+        f64 solution (numpy)."""
+        from femcy_tpu_torch import assembly_host
+
+        cfg = self.config
+        if self._refine_K is None:
+            t = _time.perf_counter()
+            pattern = self.pattern
+            if pattern is None:
+                pattern = build_pattern(self.mesh)
+            self._refine_K = assembly_host.assemble_csr_host(
+                self.mesh, pattern, np.asarray(self.material.C))
+            self._refine_reuse = {}
+            self._refine_twin_seconds = _time.perf_counter() - t
+        K_bc, b = assembly_host.dirichlet_csr_host(
+            self._refine_K, rhs_np, fixed_np, sval_np)
+        # the inner operator: the eliminated device assembly (initial
+        # configuration, constant across increments for a fixed mask)
+        values, _, _ = self._linear_system(
+            torch.zeros_like(self.dof), fixed_d, sval_d)
+        x = np.zeros(self.mesh.n_dof)
+        bmax = float(np.abs(b).max())
+        rmax = bmax
+        it = 0
+        self._suppress_cg_warn = True  # truncated inner solves are expected
+        try:
+            for it in range(cfg.refine_max_iters):
+                r = b - K_bc @ x
+                rmax = float(np.abs(r).max())
+                if bmax == 0.0 or rmax <= cfg.refine_tol * bmax:
+                    break
+                d = self._solve_linear_system(
+                    values, torch.as_tensor(r, dtype=self.dtype,
+                                            device=self.device),
+                    fixed_d, reuse=self._refine_reuse,
+                )
+                x = x + d.cpu().numpy().astype(np.float64)
+        finally:
+            self._suppress_cg_warn = False
+        self._refine_iters = it
+        if bmax > 0.0 and rmax > 1.0e-6 * bmax:
+            logger.warning(
+                "mixed-precision refinement stalled at ||r||/||b||=%.3e "
+                "after %d iterations (kappa*eps_f32 too large?)",
+                rmax / bmax, it,
+            )
+        elif cfg.verbose:
+            logger.info("refinement: %d outer iterations, ||r||/||b||=%.3e",
+                        it, rmax / (bmax + 1e-300))
+        return x
+
+    def _refine_tangent(self, dof, fixed, sval):
+        """The frozen tangent of the Newton refinement: the consistent one
+        at ``dof`` (the secant is not contractive there), plus the
+        stabilization diagonal when on, Newton-Dirichlet-eliminated."""
+        a = self._arrs
+        dof = bc_mod.pin_dof(dof, fixed, sval)
+        Ke = assembly.consistent_tangent(
+            dof, a["elements"], a["nodes"], a["dN"], a["w"], self.material)
+        values = self._scatter(Ke)
+        self._add_stab_diag(values)
+        values, _ = self._dirichlet_newton(values, torch.zeros_like(dof),
+                                           fixed)
+        return values
+
+    def _newton_refine(self, rhs, fixed, sval):
+        """Mixed-precision refinement of a converged Newton increment
+        (femcy_tpu's ``_newton_refine``): modified-Newton steps whose
+        residual is the f64 host internal force (plus the stabilization
+        force when on), each solve in the system's dtype against the
+        frozen consistent tangent, refreshed when an iteration contracts
+        by less than 10x.  Stops at ``refine_tol`` of the force scale, on
+        no progress, or after ``refine_max_iters``.  Writes the f64 state
+        to ``dof_refined`` and its rounding to ``dof``."""
+        from femcy_tpu_torch import assembly_host
+
+        cfg = self.config
+        rhs_np, fixed_np, sval_np = self._host_bc
+        fixed_np = np.asarray(fixed_np, bool)
+        dof = self.dof.cpu().numpy().astype(np.float64)
+        dof = np.where(fixed_np, np.asarray(sval_np, np.float64), dof)
+
+        def device(v):
+            return torch.as_tensor(v, dtype=self.dtype, device=self.device)
+
+        values = self._refine_tangent(device(dof), fixed, sval)
+        reuse = {}  # one LU for the whole refinement (modified Newton)
+
+        # the equilibrium the device Newton converged to includes the
+        # stabilization force; the f64 residual measures that same system
+        stab_scale = 0.0
+        stab_d = stab_ref = None
+        if self._stab_diag is not None:
+            stab_scale = float(self._stab_scale)
+            if stab_scale != 0.0:
+                stab_d = self._stab_diag.cpu().numpy().astype(np.float64)
+                stab_ref = self._stab_ref.cpu().numpy().astype(np.float64)
+
+        def f64_residual(d):
+            f = assembly_host.internal_force_host(
+                self.mesh, self.material, d, large=True)
+            if stab_d is not None:
+                f = f + stab_scale * stab_d * (d - stab_ref)
+            r = f - rhs_np
+            r[fixed_np] = 0.0
+            return r, float(np.sqrt(np.mean(f * f)))
+
+        r, scale = f64_residual(dof)
+        rms = float(np.sqrt(np.mean(r * r)))
+        floor = cfg.refine_tol * max(scale, 1e-300)
+        it = 0
+        self._suppress_cg_warn = True
+        try:
+            for it in range(cfg.refine_max_iters):
+                if rms <= floor:
+                    break
+                du = self._solve_linear_system(values, device(r), fixed,
+                                               reuse=reuse)
+                dof_new = dof - du.cpu().numpy().astype(np.float64)
+                r_new, _ = f64_residual(dof_new)
+                rms_new = float(np.sqrt(np.mean(r_new * r_new)))
+                if rms_new >= rms:
+                    break  # no progress: the solve's noise floor
+                contraction = rms_new / max(rms, 1e-300)
+                dof, r, rms = dof_new, r_new, rms_new
+                if rms > floor and contraction > 0.1:
+                    # the frozen tangent's rate is linear: refresh it at the
+                    # current state (one evaluation and one LU)
+                    values = self._refine_tangent(device(dof), fixed, sval)
+                    reuse["refresh"] = True
+        finally:
+            self._suppress_cg_warn = False
+        self._refine_iters = it
+        if cfg.verbose:
+            logger.info("newton refinement: %d iterations, "
+                        "rms(r64)/rms(f)=%.3e", it, rms / max(scale, 1e-300))
+        self.dof = device(dof)
+        self.dof_refined = dof
 
     def _ensure_multigrid(self, fixed):
         """Build (or rebuild, if the fixed-dof mask changed) the V-cycle
@@ -850,6 +1107,15 @@ class FEMSystem:
         """
         t_start = _time.time()
         cfg = self.config
+        if cfg.device_loop:
+            # the device-loop program (device_loop.py); raises on what it
+            # cannot express and never runs the host loop in its place
+            from femcy_tpu_torch.device_loop import _unsupported, device_solve
+
+            why = _unsupported(cfg, self, on_increment, on_newton)
+            if why is not None:
+                raise ValueError(f"device_loop: {why}")
+            return device_solve(self, inp, user_dirichlet, resume=resume)
         incs = inp.time_incs
         if not resume:
             self.dt = incs["ini_inc"]
@@ -908,6 +1174,12 @@ class FEMSystem:
                 rhs = (tractions_d * load_ratio) @ patterns_d
             else:
                 rhs = torch.zeros_like(self.dof)
+            # f64 host copies feed the refinement's exact residual
+            self._host_bc = None
+            if cfg.mixed_precision_refine:
+                rhs_np = ((tractions * load_ratio) @ patterns
+                          if patterns.shape[0] else np.zeros(self.mesh.n_dof))
+                self._host_bc = (rhs_np, fixed, sval)
             return rhs, fixed_d, sval_d
 
         def after_inc(dof_old):
@@ -989,6 +1261,14 @@ class FEMSystem:
         """
         cfg = self.config
         if not self.geometric_nonlinear:
+            if cfg.mixed_precision_refine and self._host_bc is not None:
+                with self.timer.section("refine_solve"):
+                    x = self._refine_linear_solve(*self._host_bc, fixed, sval)
+                self.dof = torch.as_tensor(x, dtype=self.dtype,
+                                           device=self.device)
+                self.dof_refined = x
+                self._last_vol = self._arrs["vol0"]
+                return True, 0, 0.0
             with self.timer.section("assemble+bc"):
                 values, rhs_bc, vol = self._linear_system(rhs, fixed, sval)
             with self.timer.section("linear_solve"):
@@ -997,12 +1277,20 @@ class FEMSystem:
             return True, 0, 0.0
 
         newton_count = {"n": -1}
+        # fused_newton: one step per iteration is both the evaluator and
+        # the solver; du rides in the values slot and lin_solve unwraps it
+        fused = cfg.fused_newton
 
         def evaluate(dof):
-            with self.timer.section("newton_eval"):
-                dof, values, residual, res, vol = self._newton_eval(
-                    dof, rhs, fixed, sval
-                )
+            with self.timer.section("fused_step" if fused else "newton_eval"):
+                if fused:
+                    dof, values, res, vol = self._fused_step(
+                        dof, rhs, fixed, sval)
+                    residual = None
+                else:
+                    dof, values, residual, res, vol = self._newton_eval(
+                        dof, rhs, fixed, sval
+                    )
                 res = float(res)  # the evaluation's one read-back
             self._last_vol = vol
             newton_count["n"] += 1
@@ -1012,6 +1300,8 @@ class FEMSystem:
             return dof, values, residual, res
 
         def lin_solve(values, residual, reuse=None):
+            if fused:
+                return values
             with self.timer.section("linear_solve"):
                 return self._solve_linear_system(
                     values, residual, fixed, reuse=reuse
@@ -1023,6 +1313,17 @@ class FEMSystem:
         converged, newton_loop, residual_val, self._ini_residual = run_newton(
             self.dof, evaluate, lin_solve, finish, cfg, self._ini_residual
         )
+        if converged and cfg.mixed_precision_refine and self._host_bc is not None:
+            if fused:
+                if not self._warned_fused_refine:
+                    logger.warning(
+                        "mixed_precision_refine is skipped under "
+                        "fused_newton (no host residual hook in the fused "
+                        "step); use the standard Newton path")
+                    self._warned_fused_refine = True
+            else:
+                with self.timer.section("newton_refine"):
+                    self._newton_refine(rhs, fixed, sval)
         return converged, newton_loop, residual_val
 
     # ------------------------------------------------------------------ #

@@ -10,8 +10,8 @@ plain callable
 
 passed to ``FEMSystem.solve(..., user_dirichlet=...)``; the default
 reproduces the reference kernel.  The port evaluates it on the host, in
-numpy (the JAX package writes it with ``jnp`` so that its one-program
-analysis loop can trace it; that loop is not ported).
+numpy, once per increment, on the device loop too (the JAX package writes
+it with ``jnp`` so that its one-program analysis loop can trace it).
 """
 
 from __future__ import annotations

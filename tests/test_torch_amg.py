@@ -390,7 +390,7 @@ def test_vcycle_matches_jax_and_contracts_energy_error():
     apply_j, apply_t = _fine_applies(pattern, values)
     r = np.random.default_rng(0).standard_normal(mesh.n_dof)
     zj = np.asarray(j.precondition(jnp.asarray(r), apply0=apply_j))
-    port = convert.amg_from(j)
+    port = convert.amg_from(j, device="cpu")
     assert [lv.n_dof for lv in port.levels] == [lv.n_dof for lv in j.levels]
     assert _rel(port.precondition(_t(r), apply0=apply_t), zj) <= 1e-12
     # the port's own hierarchy is the same arrays

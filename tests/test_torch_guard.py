@@ -39,7 +39,7 @@ def test_imports_and_solves_without_jax():
         from femcy_tpu_torch.utils import gif, timing
         from femcy_tpu_torch.solvers import amg, bell, cg, multigrid, riks
         from femcy_tpu_torch import assembly_host, topology
-        from femcy_tpu_torch import beam, mixed, multiblock
+        from femcy_tpu_torch import beam, device_loop, mixed, multiblock
 
         mesh = T.meshgen.box_tets(3, 2, 2)
         bottom = np.nonzero(mesh.nodes[:, 2] < 1e-9)[0]
@@ -211,6 +211,7 @@ def test_cli_runs_without_matplotlib_and_pillow(tmp_path):
 
 def test_package_sources_never_import_jax():
     pkg = pathlib.Path(femcy_tpu_torch.__file__).parent
+    assert (pkg / "device_loop.py") in set(pkg.rglob("*.py"))
     for path in pkg.rglob("*.py"):
         for line in path.read_text().splitlines():
             words = line.split()
@@ -230,7 +231,8 @@ def test_cuda_device_raises_without_a_card():
 
 
 @pytest.mark.parametrize("entry", ["FEMSystem", "StructuredMultigrid",
-                                   "MultiBlockSystem", "solve_beam"])
+                                   "MultiBlockSystem", "solve_beam",
+                                   "amg_from", "dof_from"])
 def test_default_device_is_the_card(monkeypatch, entry):
     """Every entry point defaults to CUDA: with no card that default raises
     as an explicit device="cuda" does, and device="cpu" still runs."""
@@ -254,6 +256,28 @@ def test_default_device_is_the_card(monkeypatch, entry):
                 ElementBlock(mesh.elements[:half], mesh.element, mat),
                 ElementBlock(mesh.elements[half:], mesh.element, mat)],
                 **kw).device
+    elif entry == "amg_from":
+        from types import SimpleNamespace
+
+        from femcy_tpu_torch import convert
+
+        # a one-level hierarchy with the reference's attribute names
+        level = SimpleNamespace(
+            n_dof=3, bs=3, lmax=2.0, inv_diag=np.ones(3), values=None,
+            colidx=None, P_values=None, P_colidx=None, R_values=None,
+            R_colidx=None)
+        ref = SimpleNamespace(
+            levels=[level], smooth_steps=2, cheby_alpha=4.0, _fine_nnz=9.0,
+            setup_seconds={}, _coarse_smooth_only=False, _single=True,
+            _coarse_inv=np.eye(3))
+
+        def build(**kw):
+            return convert.amg_from(ref, **kw).device
+    elif entry == "dof_from":
+        from femcy_tpu_torch import convert
+
+        def build(**kw):
+            return convert.dof_from(np.zeros(mesh.n_dof), **kw).device
     else:
         def build(**kw):
             beam = BeamModel(np.array([[0.0, 0, 0], [1, 0, 0]]),

@@ -130,12 +130,8 @@ def test_solver_config_fields_and_defaults():
 @pytest.mark.parametrize(
     "kw",
     [
-        {"dense_operator_max_dof": 10},
         {"sharding": "banded"},
-        {"mixed_precision_refine": True},
         {"sharding": "slab"},
-        {"fused_newton": True},
-        {"device_loop": True},
         {"dynamic_rescue": True},
     ],
 )
@@ -143,6 +139,24 @@ def test_solver_config_later_values_raise(kw):
     jcfg.SolverConfig(**kw)  # valid in the reference
     with pytest.raises(NotImplementedError, match="ROADMAP slice"):
         tcfg.SolverConfig(**kw)
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [
+        {"dense_operator_max_dof": 10},
+        {"mixed_precision_refine": True},
+        {"fused_newton": True},
+        {"device_loop": True},
+        {"dense_operator_max_dof": 10, "mixed_precision_refine": True,
+         "fused_newton": True, "device_loop": True},
+    ],
+)
+def test_solver_config_slice_g_values_accepted(kw):
+    """The dense CG, the refinement, the fused step and the device loop
+    are ported: these build in both packages."""
+    assert dataclasses.asdict(tcfg.SolverConfig(**kw)) == dataclasses.asdict(
+        jcfg.SolverConfig(**kw))
 
 
 @pytest.mark.parametrize(
