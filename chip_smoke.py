@@ -319,7 +319,40 @@ Phases (any failure raises, and the script exits non-zero):
    solves, the f64 host residual at the final state within 1e-8; then a
    device loop with ``stabilize_factor`` raises ValueError and launches
    nothing.
-31. print the launch counts and the CG iterations of every path, each
+31. rescue, single block: femcy_tpu's snap-through arch (its
+   tests/test_dynamic_rescue.py fixture) at 512 x 8 CPE4 (9,234 dofs),
+   the consistent tangent, f64: the static control aborts "WITHIN the
+   increment"; with ``dynamic_rescue`` it snaps through (success, time0 ==
+   1, the apex below -2 rise) with the rescue's (t_resc, Newmark steps)
+   against ``EXPECTED_RESCUE``, M4 and M1 once per evaluation and once
+   for the rescue's stiffness probe (the host direct solve, no other
+   kernel) and the rescue's warnings; a static
+   resume moves dof by <= 1e-9.  Prints the Newmark steps, h/h0 at the
+   end, the evaluations and the consistent tangent's ms an evaluation.
+32. rescue, two blocks and the CLI: the same arch split at midspan into
+   two ElementBlocks through ``MultiBlockSystem.solve_nonlinear``
+   (success, min uy within 1e-6 relative of phase 31's, M4 and M1 once per
+   block and evaluation); ``cli.main`` with ``--dynamic-rescue`` on the
+   arch at the fixture's 64 x 2 as an .inp (exit 0, the rescue's two
+   warning lines).
+33. slab, linear: the NX=56 box of phase 5 with ``sharding="slab"`` in 4
+   slabs of 14 cell planes on the one card, with the multigrid and with
+   the Jacobi CG at cg_eps 1e-10: dof within 1e-7 (inf-norm, relative) of
+   the single-device FEMSystem at the same cg_eps; P1's windowed entry
+   point launched, P2 4 times an assembly (P1 in the inner multigrid), no
+   P3; the CG iterations (18 and 1,075, as the single device) against
+   ``EXPECTED_CG_ITERS``, the warm walls and peak memory beside the single
+   device's.
+   (P1's windowed entry point is held against its plain version in
+   float32 and float64 at this slab shape after phase 3, and timed there
+   beside the plain P1 on the same rows and cuSPARSE's CSR matvec.)
+34. slab, Newton: the pinned twist on the NX=56 box in 4 slabs with the
+   multigrid CG: the history of "box Newton" (``EXPECTED_NEWTON``), dof
+   and elastic energy within 1e-6 of phase 11's single-device run, M5 and
+   P2 4 times an evaluation, the windowed P1 in the solves; then one
+   consistent-tangent slab evaluation at the final state against the
+   single-device one (tangent values within 1e-12 relative).
+35. print the launch counts and the CG iterations of every path, each
    beside the count that the deterministic kernels have always given, and
    fail on another count (a kernel changed its rounding), and the Newton
    histories beside the pinned ones; then the kernel table as one JSON
@@ -329,7 +362,8 @@ Phases (any failure raises, and the script exits non-zero):
    operations over the f64 peak, from this run's shapes) and the launches
    of the path that runs it (P1 and P3 from the multigrid slice, P2 and
    M5 from the box Newton path, M1 and M2 from the ELL slice, M4 from the
-   ELL Newton path, M3 from the AMG slice, M6 from the mixed box); then
+   ELL Newton path, M3 from the AMG slice, M6 from the mixed box, P1's
+   windowed entry point from the multigrid slab of phase 33); then
    the result line
    ``{"ok": true, "device": {...}}`` last.
 """
@@ -372,7 +406,8 @@ EXPECTED_CG_ITERS = {"multigrid box": 6, "jacobi box": 257, "ELL slice": 312,
                      "two-material ELL": 314, "two-material AMG": 7,
                      "hex+wedge": 188, "CLI, multi-block": 188,
                      "mixed box": 1125, "dense CG, ELL": 438,
-                     "dense CG, box": 250}
+                     "dense CG, box": 250, "slab, multigrid": 18,
+                     "slab, jacobi": 1075}
 #: the Newton cases' time schedule: the top face turned by time * pi about
 #: the box axis, 3.6 degrees in five increments.  Each increment's first
 #: Newton iterate puts its whole turn into the top element layer, 1/56
@@ -395,7 +430,8 @@ EXPECTED_NEWTON = {"box Newton": [(2, True)] * 5, "ELL Newton": [(2, True)] * 5,
                    "Newton refinement": [(1, True)] * 5,
                    "ELL Newton, fused": [(2, True)] * 5,
                    "box fused": [(1, True)] * 5,
-                   "device loop": [(2, True)] * 5}
+                   "device loop": [(2, True)] * 5,
+                   "slab Newton": [(2, True)] * 5}
 #: the dissipated-energy fraction of the stabilized cases (the CLI's
 #: ``--stabilize`` and ``SolverConfig.stabilize_factor``)
 STABILIZE = 2e-4
@@ -439,6 +475,16 @@ REFINE_CG_CAP = 100_000
 #: the dense CG phase: unstructured_box_tets(DENSE_NX) (27,783 dofs, a 6.2
 #: GB float64 operator) and box_tets(DENSE_BOX), dense below DENSE_MAX_DOF
 DENSE_NX, DENSE_BOX, DENSE_MAX_DOF = 20, 12, 30_000
+#: the rescue phases: femcy_tpu's snap-through arch (rise ARCH_RISE) at
+#: ARCH_FINE (CPE4 across the span x through the thickness) and at its
+#: test fixture's ARCH_FIXTURE (the CLI's .inp); the rescue's record
+#: (t_resc to 9 digits, Newmark steps) as the card has given it since the
+#: phase was added
+ARCH_RISE, ARCH_FINE, ARCH_FIXTURE = 8.0, (512, 8), (64, 2)
+EXPECTED_RESCUE = (0.062129448, 64)
+#: the slab phases' shard count: four slabs of 14 cell planes of the NX=56
+#: box, all on the one card
+SLABS = 4
 
 
 def check(ok: bool, what: str) -> None:
@@ -530,9 +576,10 @@ def row(abs_err, ms, plain_ms, library_ms, bound_ms_by):
             "bound_by": bound_ms_by[1]}
 
 
-def csr_matvec(keep, cols, values):
+def csr_matvec(keep, cols, values, n_cols=None):
     """The library yardstick of an SpMV: a CSR tensor (int32 indices) of
-    the entries of ``values`` where ``keep`` holds, and its matvec."""
+    the entries of ``values`` where ``keep`` holds, (rows, ``n_cols``;
+    square by default), and its matvec."""
     import warnings
 
     import torch
@@ -543,7 +590,8 @@ def csr_matvec(keep, cols, values):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")  # "sparse CSR support is in beta"
         A = torch.sparse_csr_tensor(crow, cols[keep].int(), values[keep],
-                                    size=(n, n), check_invariants=False)
+                                    size=(n, n if n_cols is None else n_cols),
+                                    check_invariants=False)
     return lambda x: A @ x
 
 
@@ -585,6 +633,7 @@ def launch_counters():
     )
 
     return {"dia_spmv": dia_spmv.spmv,
+            "dia_spmv_window": dia_spmv.spmv_window,
             "structured_accumulate": structured_accumulate.accumulate,
             "structured_fused": structured_fused.fused_assemble,
             "ell_scatter": ell_scatter.scatter,
@@ -1822,7 +1871,7 @@ def twist_model(mesh):
 
 
 def newton_run(torch, card, label: str, mesh, config: dict, force: str,
-               tangent: str, warm: bool):
+               tangent: str, warm: bool, keep=None):
     """Phases 11-13: one geometric-nonlinear twist of ``mesh`` through
     FEMSystem.solve on the card, every launch counter zeroed just before
     and read just after.  Checks: success, the history against
@@ -1832,7 +1881,8 @@ def newton_run(torch, card, label: str, mesh, config: dict, force: str,
     BC rows zeroed) at the final dof within 1e-8 of the device's last
     reported residual (the rms, and the vector of a fresh evaluation),
     finite output of the expected shapes.  With ``warm``, a second solve
-    must repeat the history.  Returns (launches, history)."""
+    must repeat the history.  With ``keep``, stores the final dof (numpy,
+    "dof") and energy ("energy") there.  Returns (launches, history)."""
     from femcy_tpu_torch import FEMSystem, LinearIsotropic, SolverConfig
     from femcy_tpu_torch.assembly_host import internal_force_host
     from femcy_tpu_torch.user import make_rotation_dirichlet
@@ -1949,6 +1999,8 @@ def newton_run(torch, card, label: str, mesh, config: dict, force: str,
           f"{energy:.6g}" + (f", stabilization energy {e_stab:.6e}"
                              if stab else ""), flush=True)
     del r_dev, strain, stress, mises
+    if keep is not None:
+        keep["dof"], keep["energy"] = system.dof.cpu().numpy(), energy
     if warm:
         report2, wall2, split2, evals2, history2, cg2 = one_solve()
         check(report2.success and history2 == history,
@@ -4247,6 +4299,493 @@ def device_loop_run(torch, card):
     return launches, history
 
 
+def window_spmv_checks(torch, card, results):
+    """P1's windowed entry point (the slab's halo SpMV) against its plain
+    version, in float32 and float64, at the slab shape of the NX=56 box in
+    4 slabs (14 cell planes a slab, ps = 3 * 57 * 57 rows a plane, K = 59,
+    x the slab's rows with 2 planes of halo each side), on seeded values;
+    in float64 timed in turns with the plain version, beside the plain P1
+    on the same rows and cuSPARSE's CSR matvec of the window's entries.
+    Fills results[dtype]["dia_spmv_window"]."""
+    from femcy_tpu_torch.kernels import dia_spmv as k_spmv
+    from femcy_tpu_torch.meshgen import box_tets
+    from femcy_tpu_torch.parallel.structured import (
+        HALO_PLANES,
+        build_structured_shard_plan,
+    )
+    from femcy_tpu_torch.solvers.dia import dia_spmv_window
+
+    plan = build_structured_shard_plan(box_tets(*FULL), SLABS)
+    L, K, H = plan.local_rows, len(plan.offsets), HALO_PLANES * plan.ps
+    rng = np.random.default_rng(5)
+    v_np = rng.standard_normal((L, K))
+    x_np = rng.standard_normal(L + 2 * H)
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[1]
+        vals = torch.as_tensor(v_np, dtype=dtype, device=DEVICE)
+        x = torch.as_tensor(x_np, dtype=dtype, device=DEVICE)
+        wplan = k_spmv.spmv_plan(L, plan.offsets, DEVICE)
+        vt = k_spmv.prep_values(wplan, vals)
+        y_k = k_spmv.spmv_window(wplan, vt, x, H)
+        y_p = dia_spmv_window(vals, plan.offsets, x, H)
+        torch.cuda.synchronize()
+        abs_err = float((y_k - y_p).abs().max())
+        rel = abs_err / float(y_p.abs().max())
+        check(rel <= TOL[name], f"P1 window {name}: {rel:.3e}")
+        check(torch.equal(y_k, k_spmv.spmv_window(wplan, vt, x, H)),
+              f"P1 window {name}: rerun not bit-identical")
+        # the same rows as a square operator through the plain P1 kernel
+        xs = x[H:H + L].contiguous()
+        y_sq = k_spmv.spmv(wplan, vt, xs)
+        cols = (torch.arange(L, device=DEVICE)[:, None] + H
+                + torch.as_tensor(plan.offsets, device=DEVICE)[None])
+        keep = torch.ones_like(cols, dtype=torch.bool)
+        lib = csr_matvec(keep, cols, vals, x.shape[0])
+        check(float((lib(x) - y_p).abs().max()) <= TOL[name] * float(
+            y_p.abs().max()), "P1 window's CSR yardstick disagrees")
+        ms, pms, lms = in_turns(
+            lambda: dia_spmv_window(vals, plan.offsets, x, H),
+            lambda: k_spmv.spmv_window(wplan, vt, x, H), 20, 50,
+            lambda: lib(x))
+        sq_ms = cuda_ms(lambda: k_spmv.spmv(wplan, vt, xs), 50)
+        isz = vals.element_size()
+        b = bound((K * L + L + x.shape[0]) * isz + 4 * K, 2 * K * L, name)
+        print(f"P1 window {name} on {card}: {L} rows, K {K}, x {x.shape[0]} "
+              f"(base {H}); rel err {rel:.3e} (tol {TOL[name]:.0e}); kernel "
+              f"{ms:.4f} ms, plain {pms:.4f} ms, plain P1 on the same rows "
+              f"{sq_ms:.4f} ms, CSR matvec (cuSPARSE) {lms:.4f} ms, bound "
+              f"{b[0]:.4f} ms ({b[1]})", flush=True)
+        del y_sq, lib, cols, keep
+        results.setdefault(name, {})["dia_spmv_window"] = row(
+            abs_err, ms, pms, lms, b)
+
+
+def arch_model(nx: int, ny: int):
+    """femcy_tpu's snap-through arch (its tests/test_dynamic_rescue.py
+    fixture, at nx x ny CPE4): span 100, rise ARCH_RISE, thickness 0.8,
+    the mid-thickness end nodes hinged, a pressure of 0.2 on the top
+    faces, E 1000, nu 0.3, geometric nonlinearity; *Static 0.05, 1,
+    1e-5, 0.1."""
+    from femcy_tpu_torch.io.inp import DirichletBC, InpModel, NeumannBC
+
+    span, rise, thick = 100.0, ARCH_RISE, 0.8
+    radius = (span / 2) ** 2 / (2 * rise) + rise / 2
+    th0 = np.arcsin((span / 2) / radius)
+    j, i = np.meshgrid(np.arange(ny + 1), np.arange(nx + 1), indexing="ij")
+    r = radius - thick / 2 + thick * j / ny
+    phi = -th0 + 2 * th0 * i / nx
+    nodes = np.stack([r * np.sin(phi), r * np.cos(phi)], -1).reshape(-1, 2)
+
+    def nid(i, j):
+        return j * (nx + 1) + i
+
+    ii, jj = np.meshgrid(np.arange(nx), np.arange(ny), indexing="xy")
+    ii, jj = ii.reshape(-1), jj.reshape(-1)
+    elems = np.stack([nid(ii, jj), nid(ii + 1, jj), nid(ii + 1, jj + 1),
+                      nid(ii, jj + 1)], -1).astype(np.int32)
+    ends = np.array([nid(0, ny // 2), nid(nx, ny // 2)])
+    top = [tuple(sorted((nid(k, ny), nid(k + 1, ny)))) for k in range(nx)]
+    return InpModel(
+        nodes=nodes, elements=elems, element_type="CPE4", node_sets={},
+        ele_sets={}, face_sets={},
+        dirichlet_bcs=[DirichletBC(ends, 0, 0.0), DirichletBC(ends, 1, 0.0)],
+        neumann_bcs=[NeumannBC(face_set=top, traction=-0.2, direction=None)],
+        material_type="Elastic", material_params=[1000.0, 0.3],
+        geometric_nonlinear=True,
+        time_incs=dict(ini_inc=0.05, max_time=1.0, min_inc=1e-5, max_inc=0.1),
+    )
+
+
+def arch_inp_text(model) -> str:
+    """``arch_model``'s model as an Abaqus .inp (the hinge node set, the
+    top faces as an element-based *Surface under a *Dsload P)."""
+    from femcy_tpu_torch.elements import get_element
+
+    elem = get_element("CPE4")
+    lines = ["*Heading", "snap-through arch", "*Node"]
+    lines += [f"{i + 1}, {x!r}, {y!r}" for i, (x, y) in
+              enumerate(model.nodes.tolist())]
+    lines.append("*Element, type=CPE4")
+    lines += [f"{e + 1}, " + ", ".join(str(n + 1) for n in conn)
+              for e, conn in enumerate(model.elements.tolist())]
+    top = {n for face in model.neumann_bcs[0].face_set for n in face}
+    faces = {}
+    for e, conn in enumerate(model.elements.tolist()):
+        for k, facets in enumerate(elem.inp_surface_num):
+            if {conn[ln] for f in facets for ln in f} <= top:
+                faces.setdefault(k + 1, []).append(e + 1)
+    hinge = model.dirichlet_bcs[0].node_set
+    lines += ["*Nset, nset=hinge, instance=a",
+              ", ".join(str(n + 1) for n in hinge)]
+    for k, eles in faces.items():
+        lines += [f"*Elset, elset=_t{k}, internal, instance=a",
+                  ", ".join(str(e) for e in eles)]
+    lines.append("*Surface, type=ELEMENT, name=top")
+    lines += [f"_t{k}, S{k}" for k in faces]
+    lines += ["*Material, name=m", "*Elastic", "1000., 0.3",
+              "*Step, name=s, nlgeom=YES", "*Static", "0.05, 1., 1e-05, 0.1",
+              "*Boundary", "hinge, 1, 1", "hinge, 2, 2", "*Dsload",
+              "top, P, 0.2", "*End Step"]
+    return "\n".join(lines) + "\n"
+
+
+class _Warnings:
+    """Collects the WARNING records of the femcy_tpu_torch logger while
+    installed."""
+
+    def __init__(self):
+        import logging
+
+        self.lines = []
+        self._log = logging.getLogger("femcy_tpu_torch")
+        self._handler = logging.Handler(logging.WARNING)
+        self._handler.emit = lambda rec: self.lines.append(rec.getMessage())
+
+    def __enter__(self):
+        self._log.addHandler(self._handler)
+        return self.lines
+
+    def __exit__(self, *exc):
+        self._log.removeHandler(self._handler)
+
+
+def rescue_newmark_h(system):
+    """Wraps ``system._advance_inc`` to record the Newmark step size of
+    every rescue step (h = 1 / sqrt(beta * scale) from the inertia hook's
+    scale, while the hook carries a nonzero one); returns the list."""
+    hs = []
+    gamma = system.config.dynamic_gamma
+    beta = 0.25 * (gamma + 0.5) ** 2
+    inner = system._advance_inc
+
+    def advance(rhs, fixed, sval, on_newton=None):
+        if system._stab_diag is not None and float(system._stab_scale) > 0.0:
+            hs.append(1.0 / np.sqrt(beta * float(system._stab_scale)))
+        return inner(rhs, fixed, sval, on_newton)
+
+    system._advance_inc = advance
+    return hs
+
+
+def rescue_run(torch, card):
+    """Phase 31: the snap-through arch at ARCH_FINE through FEMSystem on
+    the card, f64, the consistent tangent: the static control aborts
+    "WITHIN the increment"; with ``dynamic_rescue`` the analysis snaps
+    through (success, time0 == 1, apex below -2 rise) with the rescue's
+    (t_resc, Newmark steps) against EXPECTED_RESCUE, M4 and M1 once per
+    evaluation (and the rescue's stiffness probe) and no other kernel; a
+    static resume of the rescued state moves dof by <= 1e-9.  Prints the Newmark steps, h/h0 at the end, the
+    evaluations, the consistent tangent's ms an evaluation and the
+    launches.  Returns (launches, min uy)."""
+    from femcy_tpu_torch import FEMSystem, SolverConfig, material_from_inp
+    from femcy_tpu_torch import assembly
+    from femcy_tpu_torch.mesh import FEMesh
+
+    t_phase = time.perf_counter()
+    model = arch_model(*ARCH_FINE)
+    mat = material_from_inp(model.material_type, model.material_params,
+                            model.element_type)
+    mesh = FEMesh(model.nodes, model.elements, model.element)
+
+    def system(**cfg):
+        return FEMSystem(mesh, mat, True,
+                         SolverConfig(tangent="consistent", **cfg),
+                         device=DEVICE)
+
+    static = system()
+    t = time.perf_counter()
+    rep0 = static.solve(model)
+    static_s = time.perf_counter() - t
+    check(not rep0.success and "WITHIN the increment" in rep0.message,
+          f"arch static control: {rep0.success}, {rep0.message}")
+    print(f"rescue, static control on {card}: {mesh.n_elements} CPE4, "
+          f"{mesh.n_dof} dofs; aborted at t {static.time0:.6f} after "
+          f"{len(rep0.increments)} records in {static_s:.2f} s: "
+          f"{rep0.message}", flush=True)
+    t_fail = static.time0
+    del static
+
+    rescued = system(dynamic_rescue=True)
+    hs = rescue_newmark_h(rescued)
+    zero_launches()
+    with _Warnings() as warns:
+        t = time.perf_counter()
+        rep = rescued.solve(model)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    launches = read_launches()
+    evals = sum(r.name == "newton_eval" for r in rescued.timer.records)
+    uy = rescued.dof.cpu().numpy().reshape(-1, 2)[:, 1]
+    check(rep.success and rescued.time0 == 1.0,
+          f"arch rescue: {rep.success}, time0 {rescued.time0}, "
+          f"{rep.message}")
+    check(uy.min() < -2 * ARCH_RISE, f"arch rescue: min uy {uy.min()}")
+    rec = [r for r in rep.increments if r.converged and r.residual == 0.0]
+    check(len(rec) == 1 and rec[0].time > t_fail,
+          f"arch rescue: rescue records {rec}")
+    got = (round(rec[0].time, 9), rec[0].newton_iters)
+    check(got == EXPECTED_RESCUE, f"arch rescue: (t_resc, Newmark steps) "
+          f"{got}, {EXPECTED_RESCUE} expected")
+    # the rescue's stiffness probe is one more evaluation, outside the
+    # Newton loop's timer section
+    check(launches["internal_force"] == evals + 1
+          and launches["ell_scatter"] == evals + 1,
+          f"arch rescue: M4 {launches['internal_force']}, M1 "
+          f"{launches['ell_scatter']} for {evals} evaluations and the probe")
+    for name, n in launches.items():
+        if name not in ("internal_force", "ell_scatter"):
+            check(n == 0, f"arch rescue: {name} launched {n} times")
+    check(any("attempting implicit-dynamics traversal" in w for w in warns)
+          and any(w.endswith("resuming statics") for w in warns),
+          f"arch rescue warnings: {warns}")
+    # the consistent tangent alone, at the final state
+    a = rescued._arrs
+    ms_ct = cuda_ms(lambda: assembly.consistent_tangent(
+        rescued.dof, a["elements"], a["nodes"], a["dN"], a["w"], mat), 5)
+    print(f"rescue on {card}: {wall:.2f} s, {len(rep.increments)} records, "
+          f"{evals} evaluations (newton_eval "
+          f"{sum(r.seconds for r in rescued.timer.records if r.name == 'newton_eval'):.2f} s, "
+          f"linear_solve "
+          f"{sum(r.seconds for r in rescued.timer.records if r.name == 'linear_solve'):.2f} s); "
+          f"t_resc {rec[0].time:.9f}, {rec[0].newton_iters} Newmark steps, "
+          f"h/h0 at the end {hs[-1] / hs[0]:.4g} ({len(hs)} step attempts); "
+          f"consistent tangent {ms_ct:.3f} ms an evaluation; min uy "
+          f"{uy.min():.9f}; launches {launches}; warnings {warns}",
+          flush=True)
+    dof_end = rescued.dof.clone()
+    rescued.config = SolverConfig(tangent="consistent")
+    del rescued._advance_inc  # the Newmark step probe
+    rescued.dt = 0.05
+    rep2 = rescued.solve(model, resume=True)
+    moved = float((rescued.dof - dof_end).abs().max())
+    check(rep2.success and moved <= 1e-9,
+          f"arch rescue: static resume {rep2.success}, moved {moved:.3e}")
+    print(f"rescue: the static resume moved dof by {moved:.3e}; phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    del rescued
+    torch.cuda.empty_cache()
+    return launches, float(uy.min())
+
+
+def rescue_blocks_run(torch, card, uy_min):
+    """Phase 32: phase 31's arch split at midspan into two ElementBlocks
+    through ``MultiBlockSystem.solve_nonlinear`` with the rescue (success,
+    min uy within 1e-6 relative of phase 31's, M4 and M1 once per block
+    and evaluation); then ``cli.main`` with --dynamic-rescue on the arch
+    at femcy_tpu's fixture size as an .inp (exit 0, the rescue's warning
+    lines).  Returns the multi-block run's launches."""
+    import tempfile
+
+    from femcy_tpu_torch import (
+        ElementBlock,
+        MultiBlockSystem,
+        SolverConfig,
+        material_from_inp,
+    )
+    from femcy_tpu_torch.elements import get_element
+
+    t_phase = time.perf_counter()
+    model = arch_model(*ARCH_FINE)
+    mat = material_from_inp(model.material_type, model.material_params,
+                            model.element_type)
+    half = len(model.elements) // 2
+    blocks = [ElementBlock(model.elements[:half], get_element("CPE4"), mat,
+                           "l"),
+              ElementBlock(model.elements[half:], get_element("CPE4"), mat,
+                           "r")]
+    system = MultiBlockSystem(
+        model.nodes, blocks,
+        SolverConfig(tangent="consistent", dynamic_rescue=True),
+        device=DEVICE)
+    evals = {"n": 0}
+    inner = system._newton_eval
+
+    def counted(*args):
+        evals["n"] += 1
+        return inner(*args)
+
+    system._newton_eval = counted
+    zero_launches()
+    t = time.perf_counter()
+    rep = system.solve_nonlinear(model)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = read_launches()
+    uy = system.dof.cpu().numpy().reshape(-1, 2)[:, 1]
+    rel = abs(uy.min() - uy_min) / abs(uy_min)
+    check(rep.success and rel <= 1e-6,
+          f"two-block rescue: {rep.success}, min uy {uy.min()} vs "
+          f"{uy_min} ({rel:.3e})")
+    n = evals["n"]
+    check(launches["internal_force"] == 2 * n
+          and launches["ell_scatter"] == 2 * n,
+          f"two-block rescue: M4 {launches['internal_force']}, M1 "
+          f"{launches['ell_scatter']} for {n} evaluations of 2 blocks")
+    steps = [r.newton_iters for r in rep.increments
+             if r.converged and r.residual == 0.0]
+    print(f"rescue, two blocks on {card}: {wall:.2f} s, {n} evaluations, "
+          f"Newmark steps {steps}, min uy {uy.min():.9f} (rel {rel:.3e} to "
+          f"one block); launches {launches}", flush=True)
+    del system
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "arch.inp"
+        path.write_text(arch_inp_text(arch_model(*ARCH_FIXTURE)))
+        with _Warnings() as warns:
+            rc, _, _, _, cli_s = run_cli([str(path), "--tangent",
+                                          "consistent", "--dynamic-rescue"])
+    resc = [w for w in warns if "rescue" in w]
+    check(rc == 0 and len(resc) == 2
+          and "attempting implicit-dynamics traversal" in resc[0]
+          and resc[1].endswith("resuming statics"),
+          f"CLI --dynamic-rescue: rc {rc}, warnings {warns}")
+    print(f"rescue, CLI on {card}: rc {rc} in {cli_s:.2f} s; warnings "
+          f"{resc}; phase wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
+def slab_linear_run(torch, card):
+    """Phase 33: box_tets(56) (z = 0 clamped, ux = 0.01 on z = 1) through
+    FEMSystem(sharding="slab", sharding_devices=SLABS) with the multigrid
+    and with the Jacobi CG at cg_eps 1e-10, each against the single-device
+    FEMSystem at the same cg_eps: dof within 1e-7 relative (inf-norm); the
+    windowed P1 launched, P2 SLABS times an assembly, P1 in the inner
+    multigrid.  Prints the CG iterations beside the single-device ones,
+    the warm solve walls and the peak memory.  Returns ({path: launches},
+    {path: iterations})."""
+    from femcy_tpu_torch import FEMSystem, LinearIsotropic, SolverConfig
+    from femcy_tpu_torch.meshgen import box_tets
+
+    t_phase = time.perf_counter()
+    mesh = box_tets(*FULL)
+    inp = boundary_model(mesh, 0.01)
+    mat = LinearIsotropic(1000.0, 0.3)
+    by_path, iters = {}, {}
+    for prec in ("multigrid", "jacobi"):
+        walls, dofs, its = {}, {}, {}
+        for label, extra in (("single", {}),
+                             ("slab", dict(sharding="slab",
+                                           sharding_devices=SLABS))):
+            system = FEMSystem(mesh, mat, config=SolverConfig(
+                preconditioner=prec, cg_eps=1e-10, **extra), device=DEVICE)
+            zero_launches()
+            torch.cuda.reset_peak_memory_stats()
+            check(system.solve(inp).success, f"slab {prec} {label} solve")
+            torch.cuda.synchronize()
+            launches = read_launches()
+            peak = torch.cuda.max_memory_allocated()
+            its[label] = system._last_cg_iters
+            t = time.perf_counter()
+            system.solve(inp)
+            torch.cuda.synchronize()
+            walls[label] = (time.perf_counter() - t, peak)
+            dofs[label] = system.dof.cpu().numpy()
+            if label == "slab":
+                check(launches["dia_spmv_window"] > 0
+                      and launches["structured_accumulate"] == SLABS,
+                      f"slab {prec}: launches {launches}")
+                check(launches["structured_fused"] == 0,
+                      f"slab {prec}: P3 launched {launches}")
+                if prec == "multigrid":
+                    check(launches["dia_spmv"] > 0,
+                          f"slab multigrid: the inner cycle's P1 {launches}")
+                by_path[f"slab, {prec}"] = launches
+            del system
+            torch.cuda.empty_cache()
+        rel = float(np.abs(dofs["slab"] - dofs["single"]).max()
+                    / np.abs(dofs["single"]).max())
+        check(rel <= 1e-7, f"slab {prec}: dof vs single device {rel:.3e}")
+        iters[f"slab, {prec}"] = its["slab"]
+        print(f"slab linear, {prec}, {SLABS} slabs on {card}: CG "
+              f"{its['slab']} iterations (single device {its['single']}), "
+              f"dof rel {rel:.3e} of the single device; warm solve "
+              f"{walls['slab'][0]:.4f} s (single device "
+              f"{walls['single'][0]:.4f} s), peak memory "
+              f"{walls['slab'][1] / 1e9:.3f} GB (single device "
+              f"{walls['single'][1] / 1e9:.3f} GB); launches "
+              f"{by_path[f'slab, {prec}']}", flush=True)
+    print(f"slab linear: phase wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return by_path, iters
+
+
+def slab_newton_run(torch, card, single):
+    """Phase 34: the pinned twist (TWIST) on box_tets(56) in SLABS slabs
+    with the multigrid CG: the history against EXPECTED_NEWTON["box
+    Newton"] (the single-device run's), dof within 1e-6 relative and
+    elastic_energy within 1e-6 of the single-device run (``single``: its
+    "dof" and "energy"), M5, P2 and the windowed P1 launched (M5 and P2
+    SLABS times an evaluation); then one consistent-tangent slab
+    evaluation at the final state against the single-device one, tangent
+    values within 1e-12 relative.  Returns (launches, history)."""
+    from femcy_tpu_torch import FEMSystem, LinearIsotropic, SolverConfig
+    from femcy_tpu_torch.meshgen import box_tets
+    from femcy_tpu_torch.parallel.structured import ShardedStructuredSolver
+    from femcy_tpu_torch.user import make_rotation_dirichlet
+
+    t_phase = time.perf_counter()
+    mesh = box_tets(*FULL)
+    mat = LinearIsotropic(1000.0, 0.3)
+    inp = twist_model(mesh)
+    hook = make_rotation_dirichlet((0.5, 0.5, 0.0))
+    system = FEMSystem(mesh, mat, True, SolverConfig(
+        preconditioner="multigrid", linear_solver="cg", sharding="slab",
+        sharding_devices=SLABS), device=DEVICE)
+    zero_launches()
+    t = time.perf_counter()
+    report = system.solve(inp, user_dirichlet=hook)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = read_launches()
+    evals = sum(r.name == "newton_eval" for r in system.timer.records)
+    history = [(r.newton_iters, r.converged) for r in report.increments]
+    energy = system.elastic_energy()
+    rel = float(np.abs(system.dof.cpu().numpy() - single["dof"]).max()
+                / np.abs(single["dof"]).max())
+    rel_e = abs(energy - single["energy"]) / abs(single["energy"])
+    print(f"slab Newton, {SLABS} slabs on {card}: {wall:.2f} s, {evals} "
+          f"evaluations, history {history}, CG iterations "
+          f"{system._cg_iters_log}, dof rel {rel:.3e} and energy rel "
+          f"{rel_e:.3e} of the single device; launches {launches}",
+          flush=True)
+    check(report.success, f"slab Newton: {report.message}")
+    check(history == EXPECTED_NEWTON["box Newton"],
+          f"slab Newton: history {history}")
+    check(rel <= 1e-6 and rel_e <= 1e-6,
+          f"slab Newton vs single device: dof {rel:.3e}, energy {rel_e:.3e}")
+    check(launches["structured_force"] == SLABS * evals
+          and launches["structured_accumulate"] == SLABS * evals
+          and launches["dia_spmv_window"] > 0,
+          f"slab Newton: launches {launches} for {evals} evaluations")
+    fixed, sval = system._last_dirichlet
+    dof = system.dof
+    del system
+    torch.cuda.empty_cache()
+    # one consistent-tangent evaluation, slab against single device
+    ref = FEMSystem(mesh, mat, True, SolverConfig(tangent="consistent"),
+                    device=DEVICE)
+    zeros = torch.zeros_like(dof)
+    _, v_ref, _, _, _ = ref._newton_eval(dof, zeros, fixed, sval)
+    v_ref = v_ref.cpu().numpy()
+    del ref
+    sh = ShardedStructuredSolver(
+        mesh, mat, devices=[DEVICE] * SLABS, tangent="consistent")
+    t = time.perf_counter()
+    _, v_s, _, _ = sh.newton_eval(sh.stack(dof), sh.stack(zeros),
+                                  sh.stack(fixed), sh.stack(sval))
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t
+    rel_v = float(np.abs(sh.unstack(v_s) - v_ref).max()
+                  / np.abs(v_ref).max())
+    check(rel_v <= 1e-12, f"slab consistent tangent vs single: {rel_v:.3e}")
+    print(f"slab Newton, consistent tangent: one slab evaluation "
+          f"{eval_s:.3f} s, values rel {rel_v:.3e} of the single device's; "
+          f"phase wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+    del sh, v_s
+    torch.cuda.empty_cache()
+    return launches, history
+
+
 def main() -> int:
     card = card_line()
     print(card, flush=True)
@@ -4265,6 +4804,7 @@ def main() -> int:
 
     results = {}
     full_ref = kernel_checks(torch, card, results)
+    window_spmv_checks(torch, card, results)
     coarse_spmv_checks(torch)
     p2_launches = two_stage_run(torch, full_ref)
     box_force_checks(torch, card, results)
@@ -4314,10 +4854,12 @@ def main() -> int:
     amg_2d_checks(torch)
 
     histories = {}
+    box_single = {}
     by_path["box Newton"], histories["box Newton"] = newton_run(
         torch, card, "box Newton", box_tets(*FULL),
         dict(preconditioner="multigrid", linear_solver="cg"),
-        "structured_force", "structured_accumulate", warm=True)
+        "structured_force", "structured_accumulate", warm=True,
+        keep=box_single)
     by_path["ELL Newton"], histories["ELL Newton"] = newton_run(
         torch, card, "ELL Newton", unstructured_box_tets(UNSTRUCT[-1]), {},
         "internal_force", "ell_scatter", warm=True)
@@ -4404,6 +4946,19 @@ def main() -> int:
         torch, card)
     print(f"refinement, dense CG, fused and device-loop phases: wall "
           f"{time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    by_path["rescue"], uy_min = rescue_run(torch, card)
+    by_path["rescue, two blocks"] = rescue_blocks_run(torch, card, uy_min)
+    slab_paths, slab_iters = slab_linear_run(torch, card)
+    by_path.update(slab_paths)
+    iters.update(slab_iters)
+    by_path["slab Newton"], histories["slab Newton"] = slab_newton_run(
+        torch, card, box_single)
+    del box_single
+    print(f"rescue and slab phases: wall {time.perf_counter() - t:.1f} s",
+          flush=True)
+    launches["dia_spmv_window"] = by_path["slab, multigrid"][
+        "dia_spmv_window"]
     launches["mixed_scatter"] = by_path["mixed box"]["mixed_scatter"]
     launches["structured_accumulate"] = by_path["box Newton"][
         "structured_accumulate"]
@@ -4429,6 +4984,10 @@ def main() -> int:
     source = {
         "dia_spmv": ("femcy_tpu_torch/csrc/dia_spmv.cu",
                      "femcy_tpu/kernels/dia_spmv.py:109"),
+        # P1's windowed entry point takes the place of the slab's
+        # shifted-slice halo SpMV
+        "dia_spmv_window": ("femcy_tpu_torch/csrc/dia_spmv.cu",
+                            "femcy_tpu/parallel/structured.py:134"),
         "structured_accumulate": (
             "femcy_tpu_torch/csrc/structured_accumulate.cu",
             "femcy_tpu/kernels/structured_accumulate.py:176"),

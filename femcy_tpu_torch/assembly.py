@@ -208,10 +208,12 @@ def consistent_tangent(dof, elements, coords0, dN, w, material):
 def consistent_tangent_elems(u_e, x0_e, dN, w, material):
     """consistent_tangent on per-element arrays (E, n, dm).
 
-    One ``torch.func.jvp`` of the batched element force per element dof j,
-    with the same unit seed e_j in every element: its tangent output is
-    column j of every element's Jacobian, the values the JAX package's
-    scan of per-element JVPs gives.
+    The ``torch.func.jvp`` of the batched element force with the unit
+    seed e_j in every element gives column j of every element's Jacobian,
+    the values the JAX package's scan of per-element JVPs gives; one
+    ``torch.func.vmap`` over the edof seeds runs all the columns as one
+    pass of batched ops (a loop of edof jvps costs edof times the op
+    dispatches, which bound it at small and mid sizes).
     """
     E, n, dm = u_e.shape
     edof = n * dm
@@ -221,14 +223,13 @@ def consistent_tangent_elems(u_e, x0_e, dN, w, material):
         return _element_internal_force(u.reshape(E, n, dm), x0_e, dN, w,
                                        material)
 
-    Ke = u_e.new_empty((E, edof, edof))
-    seed = torch.zeros_like(u_flat)
-    for j in range(edof):
-        seed.zero_()
-        seed[:, j] = 1.0
-        _, col = torch.func.jvp(fe, (u_flat,), (seed,))
-        Ke[:, :, j] = col
-    return Ke
+    def column(seed):
+        return torch.func.jvp(fe, (u_flat,), (seed,))[1]
+
+    eye = torch.eye(edof, dtype=u_e.dtype, device=u_e.device)
+    seeds = eye[:, None, :].expand(edof, E, edof)
+    cols = torch.func.vmap(column)(seeds)  # (edof, E, edof): [j, e, i]
+    return cols.permute(1, 2, 0).contiguous()
 
 
 def gp_stress(F, material, large: bool):

@@ -17,9 +17,8 @@ import dataclasses
 
 #: (field, predicate on its value, the later slice that implements it)
 _LATER = (
-    ("sharding", lambda v: v != "none",
-     "multi-device sharding (ROADMAP slice I)"),
-    ("dynamic_rescue", bool, "implicit-dynamics rescue (ROADMAP slice G)"),
+    ("sharding", lambda v: v == "banded",
+     "banded multi-device sharding (ROADMAP slice I.3)"),
 )
 
 _CHOICES = {
@@ -109,19 +108,18 @@ class SolverConfig:
     refine_max_iters: int = 10
     refine_tol: float = 1.0e-11
 
-    # --- multi-chip sharding ----------------------------------------------
+    # --- multi-device sharding --------------------------------------------
     #: "none" runs single-device; "slab" shards the WHOLE analysis (linear
-    #: solves and the full adaptive-stepping Newton state machine) over the
-    #: device mesh via gather-free x-slab decomposition
-    #: (parallel/structured.py) -- needs a structured box_tets mesh whose nx
-    #: is divisible by the device count; "banded" does the same for ANY
-    #: mesh (every .inp model): RCM ordering + block-tridiagonal row shards
-    #: whose CG is three batched MXU matmuls + one-block halo ppermutes,
-    #: also gather-free (parallel/banded.py).  The reference is strictly
-    #: single-device (SURVEY.md §2.5); these are the beyond-parity scaling
-    #: paths for meshes past one chip's HBM.
+    #: solves and the full adaptive-stepping Newton state machine) over
+    #: x-slabs of a structured box_tets mesh whose nx is divisible by the
+    #: shard count (parallel/structured.py): one process drives every shard,
+    #: the halos move between the shards' tensors.  "banded" (every .inp
+    #: model: RCM ordering + block-tridiagonal row shards) is femcy_tpu's
+    #: and raises until ROADMAP slice I.3.
     sharding: str = "none"
-    #: number of devices for the sharded path; 0 = all of jax.devices()
+    #: number of shards; 0 = one per CUDA card (torch.cuda.device_count()).
+    #: Shard i lives on card i % device count, or on the CPU for a CPU
+    #: system, so several shards may share one device
     sharding_devices: int = 0
 
     # --- Newton-Raphson (geometric nonlinearity) -------------------------
@@ -222,7 +220,7 @@ class SolverConfig:
     #: dissipated energy accumulates in
     #: ``SolveReport.stabilization_energy`` and a warning fires when it
     #: exceeds ``stabilize_energy_warn`` of the elastic energy.  0 disables
-    #: (default).  Geometric-nonlinear, non-sharded analyses only.
+    #: (default).  Geometric-nonlinear analyses only (sharded or not).
     stabilize_factor: float = 0.0
     #: warn when stabilization_energy / elastic_energy exceeds this
     stabilize_energy_warn: float = 0.05
@@ -242,7 +240,7 @@ class SolverConfig:
     #: can only abort (stiffnessMtrx.py:698-701).  Each Newmark step reuses
     #: the full Newton machinery -- the effective tangent K + M/(beta h^2)
     #: rides the same code path as stabilize_factor.  Off by default.
-    #: Geometric-nonlinear, non-sharded analyses only.
+    #: Geometric-nonlinear analyses only (sharded or not).
     dynamic_rescue: bool = False
     #: Newmark gamma; > 1/2 adds numerical (high-frequency) dissipation.
     #: beta is derived as (gamma + 1/2)^2 / 4 (unconditionally stable pair).

@@ -20,6 +20,15 @@
 // multiply-add per term, with no atomics: the result is deterministic.
 // There is no dtype or size gate: float and double, any n that fits the
 // 64-bit index arithmetic.
+//
+// The windowed entry points (femcy_dia_spmv_window_*) run the same kernel
+// over a window of a longer x: y[r] = sum_k values_t[k, r] *
+// x[base + r + off_k] for the n rows of values_t, columns checked against
+// x's own length n_x.  They replace the shifted slices of the slab's halo
+// SpMV (femcy_tpu/parallel/structured.py, _spmv_local), whose x is the
+// slab's rows with two node planes of halo on each side (base = the halo's
+// length).  Same bound, same design; the plain entry points are the window
+// with base 0 and n_x = n.
 
 #include <cuda_runtime.h>
 
@@ -31,14 +40,15 @@ template <typename T>
 __global__ void dia_spmv_kernel(const T* __restrict__ values_t,
                                 const T* __restrict__ x, T* __restrict__ y,
                                 const int* __restrict__ offsets, long long n,
+                                long long n_x, long long base,
                                 int n_offsets) {
   const long long r =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (r >= n) return;
   T acc = T(0);
   for (int k = 0; k < n_offsets; ++k) {
-    const long long c = r + __ldg(offsets + k);
-    if (c >= 0 && c < n) {
+    const long long c = base + r + __ldg(offsets + k);
+    if (c >= 0 && c < n_x) {
       acc += __ldg(values_t + static_cast<long long>(k) * n + r) * __ldg(x + c);
     }
   }
@@ -47,12 +57,13 @@ __global__ void dia_spmv_kernel(const T* __restrict__ values_t,
 
 template <typename T>
 int launch(const T* values_t, const T* x, T* y, const int* offsets,
-           long long n, int n_offsets, void* stream) {
+           long long n, long long n_x, long long base, int n_offsets,
+           void* stream) {
   if (n <= 0) return 0;
   const long long blocks = (n + kThreads - 1) / kThreads;
   dia_spmv_kernel<T><<<static_cast<unsigned int>(blocks), kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
-      values_t, x, y, offsets, n, n_offsets);
+      values_t, x, y, offsets, n, n_x, base, n_offsets);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -61,11 +72,29 @@ int launch(const T* values_t, const T* x, T* y, const int* offsets,
 extern "C" int femcy_dia_spmv_f32(const float* values_t, const float* x,
                                   float* y, const int* offsets, long long n,
                                   int n_offsets, void* stream) {
-  return launch<float>(values_t, x, y, offsets, n, n_offsets, stream);
+  return launch<float>(values_t, x, y, offsets, n, n, 0, n_offsets, stream);
 }
 
 extern "C" int femcy_dia_spmv_f64(const double* values_t, const double* x,
                                   double* y, const int* offsets, long long n,
                                   int n_offsets, void* stream) {
-  return launch<double>(values_t, x, y, offsets, n, n_offsets, stream);
+  return launch<double>(values_t, x, y, offsets, n, n, 0, n_offsets, stream);
+}
+
+extern "C" int femcy_dia_spmv_window_f32(const float* values_t,
+                                         const float* x, float* y,
+                                         const int* offsets, long long n,
+                                         long long n_x, long long base,
+                                         int n_offsets, void* stream) {
+  return launch<float>(values_t, x, y, offsets, n, n_x, base, n_offsets,
+                       stream);
+}
+
+extern "C" int femcy_dia_spmv_window_f64(const double* values_t,
+                                         const double* x, double* y,
+                                         const int* offsets, long long n,
+                                         long long n_x, long long base,
+                                         int n_offsets, void* stream) {
+  return launch<double>(values_t, x, y, offsets, n, n_x, base, n_offsets,
+                        stream);
 }

@@ -26,8 +26,8 @@ is later work).  Where it differs from ``system.run_increments`` and
   back from the system's dtype.
 
 Unsupported (raises ValueError, never runs the host loop instead): a linear
-analysis, stabilization, dynamic rescue, refinement, and per-increment or
-per-Newton callbacks.
+analysis, sharding, stabilization, dynamic rescue, refinement, and
+per-increment or per-Newton callbacks.
 """
 
 from __future__ import annotations
@@ -47,6 +47,8 @@ def _unsupported(cfg, system, on_increment, on_newton) -> Optional[str]:
     if not system.geometric_nonlinear:
         return ("device_loop covers geometric-nonlinear analyses (the "
                 "linear path is already a single program)")
+    if system._shard_sys is not None:
+        return "device_loop is single-device (sharding='none')"
     if cfg.stabilize_factor > 0.0:
         return ("device_loop does not support stabilize_factor (calibration "
                 "is host-side)")

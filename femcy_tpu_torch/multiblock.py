@@ -23,16 +23,20 @@ one padded-ELL pattern shared by all of them.
 - Geometric-nonlinear analyses run ``system.run_newton`` under femcy_tpu's
   adaptive load stepping, per-block kinematics and stress with each
   block's own material.
+- ``dynamic_rescue`` runs the Newmark traversal shared with FEMSystem
+  (``system.dynamic_traverse``) over this class's twins of its hooks: the
+  inertia force and diagonal added before the Dirichlet treatment
+  (``_stab_diag``, ``_stab_ref``, ``_stab_scale``), the lumped volume
+  diagonal summed block by block and the tangent's diagonal.
 
-femcy_tpu's dense small-model CG, its ``stab_*`` hook and the
-``dynamic_rescue`` branch serve options that ``SolverConfig`` rejects
-until ROADMAP slice G, so they have no counterpart here.  Every tensor lives
-on the ``device`` given to ``MultiBlockSystem`` (the card unless "cpu").
+Every tensor lives on the ``device`` given to ``MultiBlockSystem`` (the
+card unless "cpu").
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 import time as _time
 from types import SimpleNamespace
@@ -67,6 +71,7 @@ from femcy_tpu_torch.system import (
     _rms,
     cg_done,
     default_dtype,
+    dynamic_traverse,
     mises_stress,
     run_increments,
     run_newton,
@@ -321,10 +326,20 @@ class MultiBlockSystem:
         self._amg_host_seconds: dict = {}
         self._block_meshes: dict = {}
         self.dof = torch.zeros(self.n_dof, dtype=dtype, device=device)
+        #: the rescue's Newmark inertia (the stabilization hook of
+        #: FEMSystem): the lumped diagonal, the predictor and the 0-d
+        #: scale of the force scale * diag * (dof - ref); None when off
+        self._stab_diag: Optional[torch.Tensor] = None
+        self._stab_ref: Optional[torch.Tensor] = None
+        self._stab_scale: Optional[torch.Tensor] = None
 
     # ------------------------------------------------------------------ #
     def _tensor(self, a, dt=None):
         return torch.as_tensor(a, dtype=dt or self.dtype, device=self.device)
+
+    def _scalar(self, value: float) -> torch.Tensor:
+        """A 0-d tensor of the system's dtype and device."""
+        return torch.tensor(value, dtype=self.dtype, device=self.device)
 
     def _block_values(self, bi: int, Ke) -> torch.Tensor:
         """Block bi's element matrices scattered into the union layout by
@@ -345,11 +360,12 @@ class MultiBlockSystem:
 
     def _newton_eval(self, dof, rhs, fixed, sval):
         """One residual/Jacobian evaluation over all blocks (femcy_tpu's
-        _newton_eval_impl without the stab_* hook): pin prescribed dofs;
-        per block F (initial configuration), the large-deformation Cauchy
-        stress of its material, the current-configuration gradients, the
-        internal force (M4) and the tangent (M1), each summed into the union
-        arrays in block order; then the Newton Dirichlet treatment."""
+        _newton_eval_impl): pin prescribed dofs; per block F (initial
+        configuration), the large-deformation Cauchy stress of its
+        material, the current-configuration gradients, the internal force
+        (M4) and the tangent (M1), each summed into the union arrays in
+        block order; the rescue's inertia force and diagonal when on; then
+        the Newton Dirichlet treatment."""
         a = self._arrs
         cfg = self.config
         dof = bc_mod.pin_dof(dof, fixed, sval)
@@ -373,6 +389,12 @@ class MultiBlockSystem:
                     Ke += assembly.geometric_stiffness(dsdx, sigma, vol)
             v = self._block_values(bi, Ke)
             values = v if values is None else values + v
+        if self._stab_diag is not None:
+            # before the Dirichlet treatment, so constrained rows stay
+            # zero-one
+            d = self._stab_scale * self._stab_diag
+            f_int = f_int + d * (dof - self._stab_ref)
+            values.view(-1)[a["diag_slot"]] += d
         values, residual = bc_mod.apply_dirichlet_newton(
             values, a["colidx"], a["diag_slot"], f_int - rhs, fixed)
         return dof, values, residual, _rms(residual)
@@ -546,12 +568,28 @@ class MultiBlockSystem:
         )
         return converged, loops, res
 
+    def _lumped_volume_diag(self) -> torch.Tensor:
+        """Unit-density volume-lumped nodal diagonal, one entry per dof,
+        summed over the blocks in block order (host): the rescue's mass."""
+        nodal = np.zeros(self.nodes.shape[0])
+        for blk, ba in zip(self.blocks, self._block_arrs):
+            ev = ba["vol0"].cpu().numpy().sum(axis=1)
+            npe = blk.element.n_nodes
+            np.add.at(nodal, blk.elements.reshape(-1), np.repeat(ev / npe, npe))
+        return self._tensor(np.repeat(nodal, self.dm))
+
+    def _tangent_diag_host(self, rhs, fixed, sval) -> np.ndarray:
+        """Diagonal of the Dirichlet-treated union tangent at the current
+        state, on the host."""
+        _, values, _, _ = self._newton_eval(self.dof, rhs, fixed, sval)
+        return values.view(-1)[self._arrs["diag_slot"]].cpu().numpy()
+
     def solve_nonlinear(self, model, user_dirichlet=None, on_increment=None,
                         on_newton=None) -> SolveReport:
         """Adaptive-load-stepping geometric-nonlinear analysis over all
         blocks: femcy_tpu's state machine (dt cutback with dof rollback,
-        growth after fast convergence, min_inc abort), ``run_increments``
-        shared with FEMSystem.solve."""
+        growth after fast convergence, min_inc abort, the dynamic rescue),
+        ``run_increments`` shared with FEMSystem.solve."""
         t_start = _time.time()
         self.geometric_nonlinear = True
         self.dt = model.time_incs["ini_inc"]
@@ -581,7 +619,9 @@ class MultiBlockSystem:
                     self._tensor(sval))
 
         records, success, message = run_increments(
-            self, model.time_incs, boundary, on_newton, on_increment)
+            self, model.time_incs, boundary, on_newton, on_increment,
+            rescue=(functools.partial(dynamic_traverse, self)
+                    if self.config.dynamic_rescue else None))
         self.last_report = SolveReport(
             success=success, increments=records,
             wall_time=_time.time() - t_start, message=message,

@@ -207,6 +207,25 @@ def dia_spmv(values, offsets: Tuple[int, ...], x):
     return y
 
 
+def dia_spmv_window(values, offsets: Tuple[int, ...], x_ext, base: int):
+    """y = A @ x over a window of a longer vector: ``y[r] = sum_k
+    values[r, k] * x_ext[base + r + off_k]`` for the (n, K) rows of
+    ``values``, summed in offset order from zero -- the slab's halo SpMV
+    (femcy_tpu.parallel.structured._spmv_local) and the plain version of
+    the windowed DIA SpMV kernel (kernels/dia_spmv.spmv_window).  Every
+    column must lie in ``x_ext``."""
+    n = values.shape[0]
+    if base + min(offsets) < 0 or base + max(offsets) + n > x_ext.shape[0]:
+        raise ValueError(
+            f"window base {base} with offsets [{min(offsets)}, "
+            f"{max(offsets)}] over {n} rows leaves x_ext "
+            f"({x_ext.shape[0]},)")
+    y = x_ext.new_zeros(n)
+    for k, off in enumerate(offsets):
+        y = y + values[:, k] * x_ext[base + off : base + off + n]
+    return y
+
+
 def dia_dirichlet_linear(values, offsets: Tuple[int, ...], diag_idx: int,
                          rhs, fixed, sval):
     """Symmetric zero-one elimination on the DIA layout: prescribed-value

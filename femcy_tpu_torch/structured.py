@@ -452,6 +452,34 @@ def analytic_structured_dia_values(
     return V.reshape(-1, K)
 
 
+def cell_gradients(mesh: FEMesh):
+    """Per-orientation shape gradients and volumes of ONE uniform-grid
+    cell, host numpy: (dsdx (6, G, 4, 3), vol (6, G)).  Every cell of an
+    orientation has the same kinematics on a uniform box, so the
+    slab-sharded path broadcasts these over its cells (host copy of
+    femcy_tpu.structured.cell_gradients)."""
+    info = _box_info(mesh)
+    nx, ny, nz = info["nx"], info["ny"], info["nz"]
+    spacing = np.array(
+        [
+            mesh.nodes[:, 0].max() / nx,
+            mesh.nodes[:, 1].max() / ny,
+            mesh.nodes[:, 2].max() / nz,
+        ]
+    )
+    delta = np.asarray(info["corner_delta"]) * spacing
+    dN = np.asarray(mesh.element.dshape_at_gp)  # (G, 4, 3)
+    w = np.asarray(mesh.element.gauss_weights)
+    dsdx = np.zeros((6, dN.shape[0], 4, 3))
+    vol = np.zeros((6, dN.shape[0]))
+    for o, corners in enumerate(info["kuhn"]):
+        x = delta[list(corners)]  # (4, 3)
+        dxdn = np.einsum("nD,gnd->gDd", x, dN)
+        dsdx[o] = np.einsum("gnd,gdD->gnD", dN, np.linalg.inv(dxdn))
+        vol[o] = np.linalg.det(dxdn) * w
+    return dsdx, vol
+
+
 def dia_to_dense_device(values, offsets):
     """(n, K) DIA values -> (n, n) dense, on the values' device: the
     small-model dense CG's operator (FEMSystem._dense_cg_core).  Slots whose

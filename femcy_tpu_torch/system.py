@@ -54,7 +54,13 @@ three layouts:
   riding in ``run_newton``'s values slot), mixed-precision refinement
   (``mixed_precision_refine``: float32 solves corrected against the f64
   host operator or the f64 host internal force) and the device loop
-  (``device_loop``, device_loop.py).
+  (``device_loop``, device_loop.py);
+- the implicit-dynamics rescue (``dynamic_rescue``: ``dynamic_traverse``,
+  a hook of ``run_increments``, shared with multiblock.py), which carries
+  a within-increment snap through Newmark steps on the stabilization hook;
+- slab sharding (``sharding="slab"``, parallel/structured.py): the same
+  host state machine drives the slab solver's assembly, evaluation and
+  CG over x-slabs of a box, on one or several devices of one process.
 
 Every tensor lives on the ``device`` given to ``FEMSystem`` (``"cuda"`` by
 default, ``"cpu"`` when asked for; CUDA without a card raises) in one float
@@ -67,6 +73,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import math
 import os
 import time as _time
 from typing import Callable, List, Optional
@@ -249,7 +256,7 @@ def run_newton(dof0, evaluate, lin_solve, finish, cfg, ini_residual):
 
 def run_increments(system, time_incs, boundary, on_newton=None,
                    on_increment=None, before_inc=None, after_inc=None,
-                   diagnose=None):
+                   diagnose=None, rescue=None):
     """The adaptive load stepping (ref: stiffnessMtrx.py:647-711) of
     femcy_tpu's ``FEMSystem.solve`` and ``MultiBlockSystem.
     solve_nonlinear``: each increment runs ``system._advance_inc``; a
@@ -266,8 +273,17 @@ def run_increments(system, time_incs, boundary, on_newton=None,
         after a converged increment, before it becomes the last one
     diagnose(dof_trial, fixed, sval) -> str
         appended to the abort message when non-empty
+    rescue(rhs, fixed, sval, on_newton) -> (settled, steps, detail)
+        the implicit-dynamics traversal (config.dynamic_rescue,
+        ``dynamic_traverse``), tried up to ``dynamic_max_rescues`` times
+        before an abort: the schedule is held at t_resc (the step's
+        ``ini_inc``, or ``dynamic_rescue_dt`` of the total time, past the
+        failure), ``boundary`` gives its arrays, and a settled traversal
+        is recorded as a converged increment at t_resc with its Newmark
+        steps in the Newton slot, after which the stepping resumes at
+        ``ini_inc``; otherwise ``detail`` ends the abort message
     on_increment(system, record)
-        after every converged increment
+        after every converged increment, the rescue's included
 
     Returns (records, success, message)."""
     cfg = system.config
@@ -277,6 +293,7 @@ def run_increments(system, time_incs, boundary, on_newton=None,
     records: List[IncrementRecord] = []
     dof_old = system.dof
     kinc = -1
+    rescues = 0
     while system.time1 < max_time:
         kinc += 1
         system.time1 = min(system.time0 + system.dt, max_time)
@@ -300,12 +317,43 @@ def run_increments(system, time_incs, boundary, on_newton=None,
             records.append(IncrementRecord(
                 kinc + 1, system.time0, system.dt, newton_loops, res, False))
             if system.dt < min_inc:
+                message_extra = ""
+                if rescue is not None and rescues < cfg.dynamic_max_rescues:
+                    rescues += 1
+                    step_dt = (cfg.dynamic_rescue_dt * max_time
+                               if cfg.dynamic_rescue_dt > 0.0
+                               else time_incs["ini_inc"])
+                    t_resc = min(system.time0 + step_dt, max_time)
+                    rhs_r, fixed_r, sval_r = boundary(t_resc, t_resc / max_time)
+                    logger.warning(
+                        "static increment failed at t=%.6g; attempting "
+                        "implicit-dynamics traversal to t=%.6g "
+                        "(rescue %d/%d)", system.time0, t_resc, rescues,
+                        cfg.dynamic_max_rescues)
+                    ok, nsteps, detail = rescue(rhs_r, fixed_r, sval_r,
+                                                on_newton)
+                    if ok:
+                        logger.warning(
+                            "dynamic rescue at t=%.6g -> %.6g: %s; "
+                            "resuming statics", system.time0, t_resc, detail)
+                        system.time0 = system.time1 = t_resc
+                        system.dt = time_incs["ini_inc"]
+                        dof_old = system.dof
+                        kinc += 1
+                        records.append(IncrementRecord(
+                            kinc, t_resc, system.dt, nsteps, 0.0, True))
+                        if on_increment is not None:
+                            on_increment(system, records[-1])
+                        continue
+                    logger.warning("%s", detail)
+                    message_extra = "; " + detail
                 message = ("allowable minimum dt reached; Newton's method "
                            "did not converge")
                 if diagnose is not None:
                     diag = diagnose(dof_trial, fixed, sval)
                     if diag:
                         message += "; " + diag
+                message += message_extra
                 logger.warning(message)
                 return records, False, message
             continue
@@ -322,6 +370,151 @@ def run_increments(system, time_incs, boundary, on_newton=None,
         if on_increment is not None:
             on_increment(system, records[-1])
     return records, True, "converged"
+
+
+def dynamic_traverse(system, rhs, fixed, sval, on_newton):
+    """Traverse a within-increment snap with implicit dynamics
+    (config.dynamic_rescue; femcy_tpu's ``FEMSystem._dynamic_traverse``,
+    shared, as there, by ``FEMSystem`` and ``MultiBlockSystem``).
+
+    Loads and Dirichlet values are HELD at the target time (the caller
+    builds ``rhs``/``fixed``/``sval`` there); the mesh gets a unit-density
+    lumped mass and Newmark-beta with numerical dissipation (gamma > 1/2,
+    beta = (gamma + 1/2)^2 / 4) integrates the jump in pseudo-time until
+    the kinetic energy stays below ``dynamic_settle_tol`` of the elastic
+    energy for two steps; a static Newton polish then confirms the
+    far-side equilibrium (a rejected polish tightens the settle tolerance
+    by 1e-2 and the integration goes on).  The first step h0 puts
+    M/(beta h0^2) at the median of diag(K)/M over the free dofs; h is cut
+    by 4 when a step's Newton fails and doubled after a fast one.  Each
+    Newmark step is one ``system._advance_inc`` with the stabilization
+    hook (``_stab_diag``, ``_stab_ref``, ``_stab_scale``) carrying the
+    inertia: scale 1/(beta h^2), reference the predictor; the polish keeps
+    the hook at scale 0.  Duck-typed over ``config``, ``dof``, those three
+    attributes, ``_scalar``, ``_advance_inc``, ``elastic_energy``,
+    ``_tangent_diag_host`` and ``_lumped_volume_diag``.
+
+    Returns (settled, Newmark steps, detail).  ``system.dof`` holds the
+    settled state on success and the entry state otherwise; the
+    stabilization state is restored either way."""
+    cfg = system.config
+    gamma = cfg.dynamic_gamma
+    beta = 0.25 * (gamma + 0.5) ** 2
+    u_entry = system.dof
+    saved = (system._stab_diag, system._stab_ref, system._stab_scale)
+    if system._stab_diag is not None:
+        # a huge leftover stabilization scale (C/dt at dt -> min_inc)
+        # would corrupt the stiffness probe below
+        system._stab_scale = system._scalar(0.0)
+        system._stab_ref = u_entry
+
+    def restore():
+        system._stab_diag, system._stab_ref, system._stab_scale = saved
+
+    # pseudo-time scale: M/(beta h0^2) ~ diag(K) at the median free dof,
+    # i.e. the first step is strongly inertia-regularized
+    kdiag = system._tangent_diag_host(rhs, fixed, sval)
+    m = system._lumped_volume_diag()
+    m_np = m.cpu().numpy()
+    free = ~fixed.cpu().numpy().astype(bool)
+    ratio = kdiag[free] / np.maximum(m_np[free], 1e-300)
+    w2 = float(np.median(ratio))
+    if not np.isfinite(w2) or w2 <= 0.0:
+        restore()
+        return False, 0, "dynamic rescue: degenerate stiffness/mass ratio"
+    h0 = 1.0 / math.sqrt(beta * w2)
+    h = h0
+    system._stab_diag = m
+
+    def polish(u):
+        """Static Newton at the settled state (scale 0: pure statics) --
+        the true acceptance gate; kinetic energy alone can accept a state
+        outside any static basin."""
+        system._stab_scale = system._scalar(0.0)
+        system._stab_ref = u
+        system.dof = u
+        conv, _, _ = system._advance_inc(rhs, fixed, sval, on_newton)
+        return conv
+
+    u = u_entry
+    v = torch.zeros_like(u)
+    acc = torch.zeros_like(u)
+    notfix = torch.as_tensor(free, dtype=u.dtype, device=u.device)
+    steps = attempts = settled = polish_fails = 0
+    settle_tol = cfg.dynamic_settle_tol
+    e_kin = np.inf
+    while steps < cfg.dynamic_max_steps:
+        attempts += 1
+        if attempts > 4 * cfg.dynamic_max_steps or h < 1e-8 * h0:
+            system.dof = u_entry
+            restore()
+            return False, steps, (
+                "dynamic rescue: Newmark Newton could not converge "
+                f"(h collapsed to {h:.3e} of h0={h0:.3e})"
+            )
+        pred = u + h * v + (0.5 - beta) * h * h * acc
+        system._stab_ref = pred
+        system._stab_scale = system._scalar(1.0 / (beta * h * h))
+        system.dof = u
+        converged, loops, _ = system._advance_inc(rhs, fixed, sval, on_newton)
+        if not converged:
+            system.dof = u
+            h *= 0.25
+            continue
+        steps += 1
+        u_new = system.dof
+        # prescribed dofs move by pinning, not by dynamics: their
+        # fictitious acceleration must not enter the energy budget
+        a_new = notfix * (u_new - pred) / (beta * h * h)
+        v = notfix * (v + h * ((1.0 - gamma) * acc + gamma * a_new))
+        acc = a_new
+        u = u_new
+        e_kin = 0.5 * float((m * v * v).sum())
+        e_el = abs(system.elastic_energy())
+        if cfg.verbose or steps % 25 == 0:
+            logger.info("rescue step %d: h/h0=%.2e E_kin/E_elas=%.2e",
+                        steps, h / h0, e_kin / max(e_el, 1e-300))
+        if e_kin < settle_tol * max(e_el, 1e-300):
+            settled += 1
+            if settled >= 2:
+                if polish(u):
+                    restore()
+                    return True, steps, (
+                        f"settled in {steps} Newmark steps"
+                        + (f" ({polish_fails} settle(s) rejected by the "
+                           "static polish)" if polish_fails else "")
+                    )
+                # settled kinetically but not statically: tighten the
+                # settle tolerance and keep integrating toward the
+                # attractor (h -> inf is the static limit)
+                polish_fails += 1
+                settle_tol *= 1e-2
+                settled = 0
+                system.dof = u
+                logger.info("rescue step %d: static polish rejected the "
+                            "settled state; tightening settle tol to %.1e",
+                            steps, settle_tol)
+        else:
+            settled = 0
+        if loops <= cfg.newton_fast_iters:
+            # no upper cap: h must reach the snap mode's fundamental
+            # period for the gamma dissipation to kill the swing; Newton
+            # failing at too large an h is the regulator (h *= 0.25)
+            h *= 2.0
+    system.dof = u_entry
+    restore()
+    if polish_fails:
+        return False, steps, (
+            "dynamic rescue: settled dynamically "
+            f"{polish_fails} time(s) but the static polish never "
+            "converged (no static equilibrium basin reached within "
+            f"{cfg.dynamic_max_steps} steps)"
+        )
+    return False, steps, (
+        "dynamic rescue: kinetic energy did not settle within "
+        f"{cfg.dynamic_max_steps} steps (E_kin/E_elas ~ "
+        f"{e_kin / max(abs(system.elastic_energy()), 1e-300):.1e})"
+    )
 
 
 def cg_done(system, n_dof: int, what: str, x, iters: int, rmax, b):
@@ -569,6 +762,38 @@ class FEMSystem:
         self._bell_fine: Optional[k_bell.FinePlan] = None
         #: host walls (seconds) of the last hierarchy build, by phase
         self._amg_host_seconds: dict = {}
+
+        #: the slab-sharded solver (config.sharding="slab",
+        #: parallel/structured.py): the same host state machine drives its
+        #: slab programs instead of the single-device steps; None otherwise
+        self._shard_sys = None
+        if config.sharding == "slab":
+            if self._structured_plan is None:
+                raise ValueError(
+                    "sharding='slab' needs a structured box_tets mesh "
+                    "(e.g. meshgen.box_tets); unstructured meshes use "
+                    "sharding='banded'"
+                )
+            from femcy_tpu_torch.parallel.structured import (
+                ShardedStructuredSolver,
+            )
+
+            cards = torch.cuda.device_count() if device.type == "cuda" else 0
+            n = config.sharding_devices or cards
+            if n < 1:
+                raise ValueError(
+                    "sharding='slab' on the CPU needs sharding_devices > 0")
+            shards = ([torch.device("cuda", i % cards) for i in range(n)]
+                      if cards else [device] * n)
+            self._shard_sys = ShardedStructuredSolver(
+                mesh, material, devices=shards, cg_eps=config.cg_eps,
+                cg_iters=config.cg_max_iters,
+                preconditioner=("multigrid"
+                                if config.preconditioner == "multigrid"
+                                else "jacobi"),
+                geometric_stiffness=config.geometric_stiffness,
+                tangent=config.tangent, dtype=dtype,
+            )
 
     # ------------------------------------------------------------------ #
     # device steps
@@ -1213,9 +1438,17 @@ class FEMSystem:
             if on_increment is not None:
                 on_increment(self, record)
 
+        def rescue(rhs, fixed, sval, on_newton):
+            nonlocal dof_prev, dt_prev
+            out = dynamic_traverse(self, rhs, fixed, sval, on_newton)
+            if out[0]:  # statics resume with no predictor history
+                dof_prev, dt_prev = None, 0.0
+            return out
+
         records, success, message = run_increments(
             self, incs, boundary, on_newton, increment_done, before_inc,
             after_inc, self._diagnose_failure if cfg.diagnose_failure else None,
+            rescue if cfg.dynamic_rescue and self.geometric_nonlinear else None,
         )
 
         if stab_on and success and stab_energy > 0.0:
@@ -1252,6 +1485,17 @@ class FEMSystem:
         return torch.as_tensor(np.repeat(nodal, self.mesh.dm),
                                dtype=self.dtype, device=self.device)
 
+    def _tangent_diag_host(self, rhs, fixed, sval) -> np.ndarray:
+        """Diagonal of the Dirichlet-treated Newton tangent at the current
+        state, on the host: ``dynamic_traverse``'s pseudo-time scale.  One
+        single-device evaluation, also under sharding (as femcy_tpu's)."""
+        _, values, _, _, _ = self._newton_eval(self.dof, rhs, fixed, sval)
+        if self.dia is not None:
+            d = values[:, self.dia.diag_idx]
+        else:
+            d = values.view(-1)[self._arrs["diag_slot"]]
+        return d.cpu().numpy()
+
     def _advance_inc(self, rhs, fixed, sval, on_newton=None):
         """One load increment (ref: stiffnessMtrx.py:714-822): assemble,
         eliminate and solve on the linear path; the Newton-Raphson loop
@@ -1260,7 +1504,17 @@ class FEMSystem:
         Returns (converged, newton_loops, final residual).
         """
         cfg = self.config
+        sh = self._shard_sys
         if not self.geometric_nonlinear:
+            if sh is not None:
+                with self.timer.section("sharded_linear"):
+                    x, iters = sh.solve(rhs.cpu().numpy(), fixed.cpu().numpy(),
+                                        sval.cpu().numpy())
+                self._last_cg_iters = iters
+                self._cg_iters_log.append(iters)
+                self.dof = torch.as_tensor(x, dtype=self.dtype,
+                                           device=self.device)
+                return True, 0, 0.0
             if cfg.mixed_precision_refine and self._host_bc is not None:
                 with self.timer.section("refine_solve"):
                     x = self._refine_linear_solve(*self._host_bc, fixed, sval)
@@ -1276,6 +1530,8 @@ class FEMSystem:
             self._last_vol = vol
             return True, 0, 0.0
 
+        if sh is not None:
+            return self._advance_inc_sharded(rhs, fixed, sval, on_newton)
         newton_count = {"n": -1}
         # fused_newton: one step per iteration is both the evaluator and
         # the solver; du rides in the values slot and lin_solve unwraps it
@@ -1324,6 +1580,50 @@ class FEMSystem:
             else:
                 with self.timer.section("newton_refine"):
                     self._newton_refine(rhs, fixed, sval)
+        return converged, newton_loop, residual_val
+
+    def _advance_inc_sharded(self, rhs, fixed, sval, on_newton=None):
+        """The Newton increment under sharding="slab": ``run_newton`` over
+        the slab solver's evaluation and CG, the working dof, tangent and
+        residual as slab blocks (femcy_tpu's sharded branch of
+        ``_advance_inc``).  The stabilization / Newmark hook's blocks are
+        stacked once per increment.  No refinement under sharding."""
+        sh = self._shard_sys
+        rhs_s = sh.stack(rhs)
+        fixed_np = fixed.cpu().numpy()
+        fixed_s = sh.stack(fixed_np)
+        sval_s = sh.stack(sval)
+        stab_s = None
+        if self._stab_diag is not None:
+            stab_s = (sh.stack(self._stab_diag), sh.stack(self._stab_ref),
+                      self._stab_scale)
+        newton_count = {"n": -1}
+
+        def evaluate(dof):
+            with self.timer.section("newton_eval"):
+                dof, values, residual, res = sh.newton_eval(
+                    dof, rhs_s, fixed_s, sval_s, stab_s=stab_s)
+                res = float(res)
+            newton_count["n"] += 1
+            if on_newton is not None:
+                finish(dof)
+                on_newton(self, newton_count["n"], res)
+            return dof, values, residual, res
+
+        def lin_solve(values, residual, reuse=None):
+            with self.timer.section("linear_solve"):
+                du, iters, rmax = sh.cg(values, residual, fixed_np, fixed_s)
+            b_max = torch.stack([r.abs().max().cpu() for r in residual])
+            return cg_done(self, self.mesh.n_dof, "slab CG", du, iters,
+                           rmax, b_max)
+
+        def finish(dof):
+            self.dof = torch.as_tensor(sh.unstack(dof), dtype=self.dtype,
+                                       device=self.device)
+
+        converged, newton_loop, residual_val, self._ini_residual = run_newton(
+            sh.stack(self.dof), evaluate, lin_solve, finish, self.config,
+            self._ini_residual)
         return converged, newton_loop, residual_val
 
     # ------------------------------------------------------------------ #
@@ -1395,7 +1695,8 @@ class FEMSystem:
                 )
         except Exception as exc:  # diagnostics must never mask the abort
             logger.info("element-volume probe failed: %s", exc)
-        if self.mesh.n_dof <= self.config.diagnose_eig_max_dof:
+        if (self._shard_sys is None
+                and self.mesh.n_dof <= self.config.diagnose_eig_max_dof):
             try:
                 lam = self.tangent_min_eigenvalue(fixed, sval)
             except Exception as exc:
@@ -1451,9 +1752,17 @@ class FEMSystem:
 
     def elastic_energy(self) -> float:
         """Total elastic energy = sum psi(F) * vol over the most recently
-        assembled configuration's volumes (ref: stiffnessMtrx.py:592-606)."""
+        assembled configuration's volumes (ref: stiffnessMtrx.py:592-606);
+        under sharding, which keeps no global volumes, a nonlinear
+        analysis integrates over the current configuration."""
+        vol = self._last_vol
+        if self._shard_sys is not None and self.geometric_nonlinear:
+            a = self._arrs
+            coords = a["nodes"] + self.dof.reshape(-1, self.mesh.dm)
+            _, vol = assembly.gradients_and_volume_x(
+                structured_element_nodes(coords, self.mesh), a["dN"], a["w"])
         dens = assembly.gp_energy_density(self.deformation_gradient(), self.material)
-        return float((dens * self._last_vol).sum())
+        return float((dens * vol).sum())
 
     def extrapolate(self, gp_vals):
         """GP -> nodal patch extrapolation, (E, G) -> (E, n_nodes)."""

@@ -24,6 +24,7 @@ helpers and ``device_trace``.
 
 import dataclasses
 import json
+import logging
 import os
 import pathlib
 import re
@@ -446,11 +447,74 @@ def test_amg_ignored_with_a_warning_off_the_single_block_route(
     _same_lines("\n".join(rest), plain)
 
 
-def test_dynamic_rescue_raises_naming_slice_g(tmp_path):
-    path = tmp_path / "model.inp"
-    path.write_text(_cantilever())
-    with pytest.raises(NotImplementedError, match="ROADMAP slice G"):
-        tcli.main([str(path), "--platform", "cpu", "--dynamic-rescue"])
+def _arch():
+    """femcy_tpu's snap-through arch (tests/test_dynamic_rescue.py::
+    _arch_inp: 64 x 2 CPE4, span 100, rise 8, thickness 0.8) as an .inp:
+    the mid-thickness end nodes hinged, a pressure of 0.2 on the top
+    faces, its *Static schedule."""
+    from test_torch_rescue import arch_inp
+
+    inp = arch_inp()
+    mesh = T.FEMesh(inp.nodes, inp.elements, convert.element_from(
+        F.elements.get_element("CPE4")))
+    lines = ["*Heading", "snap-through arch", "*Node"]
+    lines += [f"{i + 1}, " + ", ".join(repr(float(c)) for c in p)
+              for i, p in enumerate(mesh.nodes)]
+    lines.append("*Element, type=CPE4")
+    lines += [f"{e + 1}, " + ", ".join(str(int(n) + 1) for n in conn)
+              for e, conn in enumerate(mesh.elements)]
+    hinge = inp.dirichlet_bcs[0].node_set
+    top = {n for face in inp.neumann_bcs[0].face_set for n in face}
+    faces = {}
+    for e, conn in enumerate(mesh.elements):
+        for k, facets in enumerate(mesh.element.inp_surface_num):
+            if {int(conn[ln]) for f in facets for ln in f} <= top:
+                faces.setdefault(k + 1, []).append(e + 1)
+    lines += ["*Nset, nset=hinge, instance=a",
+              ", ".join(str(n + 1) for n in hinge)]
+    for k, eles in faces.items():
+        lines += [f"*Elset, elset=_t{k}, internal, instance=a",
+                  ", ".join(str(e) for e in eles)]
+    lines.append("*Surface, type=ELEMENT, name=top")
+    lines += [f"_t{k}, S{k}" for k in faces]
+    lines += ["*Material, name=m", "*Elastic", "1000., 0.3",
+              "*Step, name=s, nlgeom=YES", "*Static",
+              "0.05, 1., 1e-05, 0.1", "*Boundary", "hinge, 1, 1",
+              "hinge, 2, 2", "*Dsload", "top, P, 0.2", "*End Step"]
+    return "\n".join(lines) + "\n"
+
+
+def test_dynamic_rescue_raises_naming_slice_g(tmp_path, capsys, caplog):
+    """``--dynamic-rescue`` runs (the name is from before the rescue was
+    ported, when the flag raised): femcy_tpu's snap-through arch from
+    t = 0 through both CLIs with the consistent tangent, one torch thread
+    (thousands of evaluations on 128 elements): exit 0, femcy_tpu's lines
+    (observables within 1e-6), its warnings about the failed increment
+    and the rescue, and the largest displacement past twice the rise."""
+    path = tmp_path / "arch.inp"
+    path.write_text(_arch())
+    argv = [str(path), "--platform", "cpu", "--tangent", "consistent",
+            "--dynamic-rescue"]
+    outs = {}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for name, main in (("jax", jcli.main), ("torch", tcli.main)):
+            caplog.clear()
+            with caplog.at_level(logging.WARNING):
+                rc = main(argv)
+            rescue = [r.getMessage() for r in caplog.records
+                      if "rescue" in r.getMessage()]
+            outs[name] = (rc, capsys.readouterr().out, rescue)
+    finally:
+        torch.set_num_threads(threads)
+    (j_rc, j_out, j_warn), (t_rc, t_out, t_warn) = outs["jax"], outs["torch"]
+    assert t_rc == j_rc == 0
+    _same_output(t_out, j_out)
+    assert t_warn == j_warn and len(t_warn) == 2
+    assert "attempting implicit-dynamics traversal" in t_warn[0]
+    assert t_warn[1].endswith("resuming statics")
+    assert _observables(t_out)["max |dof| (displacement)"] > 16.0
 
 
 def test_platform_choices(tmp_path, capsys, monkeypatch):

@@ -187,12 +187,13 @@ def test_device_loop_record_capacity_ends_with_status_3(tmp_path):
         r.time for r in fr.increments[:2]]
 
 
-@pytest.mark.parametrize("case", ["linear", "stabilize", "refine",
-                                  "on_increment", "on_newton"])
+@pytest.mark.parametrize("case", ["linear", "sharded", "stabilize",
+                                  "refine", "on_increment", "on_newton"])
 def test_device_loop_unsupported_raises_like_jax(case):
     jm, mat, inp = _twist()
     cfg = dict(BASE, device_loop=True)
-    cfg.update({"stabilize": dict(stabilize_factor=1e-4),
+    cfg.update({"sharded": dict(sharding="slab", sharding_devices=1),
+                "stabilize": dict(stabilize_factor=1e-4),
                 "refine": dict(mixed_precision_refine=True)}.get(case, {}))
     kw = {"on_increment": dict(on_increment=lambda s, r: None),
           "on_newton": dict(on_newton=lambda s, k, r: None)}.get(case, {})

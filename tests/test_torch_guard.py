@@ -211,7 +211,9 @@ def test_cli_runs_without_matplotlib_and_pillow(tmp_path):
 
 def test_package_sources_never_import_jax():
     pkg = pathlib.Path(femcy_tpu_torch.__file__).parent
-    assert (pkg / "device_loop.py") in set(pkg.rglob("*.py"))
+    sources = set(pkg.rglob("*.py"))
+    assert (pkg / "device_loop.py") in sources
+    assert (pkg / "parallel" / "structured.py") in sources
     for path in pkg.rglob("*.py"):
         for line in path.read_text().splitlines():
             words = line.split()

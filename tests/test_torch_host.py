@@ -131,14 +131,27 @@ def test_solver_config_fields_and_defaults():
     "kw",
     [
         {"sharding": "banded"},
-        {"sharding": "slab"},
-        {"dynamic_rescue": True},
     ],
 )
 def test_solver_config_later_values_raise(kw):
     jcfg.SolverConfig(**kw)  # valid in the reference
-    with pytest.raises(NotImplementedError, match="ROADMAP slice"):
+    with pytest.raises(NotImplementedError, match="ROADMAP slice I.3"):
         tcfg.SolverConfig(**kw)
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [
+        {"sharding": "slab"},
+        {"dynamic_rescue": True},
+        {"sharding": "slab", "sharding_devices": 4, "dynamic_rescue": True},
+    ],
+)
+def test_solver_config_rescue_and_slab_values_accepted(kw):
+    """The implicit-dynamics rescue and the slab sharding are ported:
+    these build in both packages."""
+    assert dataclasses.asdict(tcfg.SolverConfig(**kw)) == dataclasses.asdict(
+        jcfg.SolverConfig(**kw))
 
 
 @pytest.mark.parametrize(
