@@ -352,7 +352,35 @@ Phases (any failure raises, and the script exits non-zero):
    P2 4 times an evaluation, the windowed P1 in the solves; then one
    consistent-tangent slab evaluation at the final state against the
    single-device one (tangent values within 1e-12 relative).
-35. print the launch counts and the CG iterations of every path, each
+35. sharded ELL: ``ShardedLinearSolver`` on the ELL slice's mesh in 4
+   shards on the one card: at cg_eps 1e-3 its CG iterations (pinned,
+   beside the single device's 312), M1 once a shard (M7), M2 once a shard
+   an iteration; at cg_eps 1e-10 x within 1e-8 of the single-device ELL
+   solve and its f64 host residual below 1e-8; one ``ShardedNewtonStep``
+   against the single-device evaluation and CG: rms 1e-10, and the step's
+   residual on the single device's tangent below 1e-8, as the single
+   device's own CG's.
+36. M7 and M8 alone at the full-width shard shapes, f32 and f64: M1 and
+   M4 on shard 0's plan of the ELL slice's mesh, M8's stiffness and force
+   plans of shard 0 of the banded cell, each bit for bit its plain
+   version run on the CPU and its rerun; timed in f64 beside its plain
+   version, one ``index_add_`` and its bound.
+37. banded cell: BANDED_SWEEP.json's cantilever_tets(400, 20) (530,523
+   dofs, its axial loading) through ``BandedShardedSolver`` in 4 shards,
+   twolevel, cg_eps 1e-5: B 1328, nbl 100, M8 once a shard, its
+   iterations (pinned, beside the JAX CPU sweep's 48), the setup,
+   assembly, factor and CG walls, peak memory, one Thomas sweep and one
+   SpMV, the f64 host residual below 1e-4.
+38. banded Newton: tests/test_banded.py's nlgeom cantilever at
+   cantilever_tets(100, 8) (24,543 dofs), secant and consistent, through
+   ``FEMSystem(sharding="banded", sharding_devices=4)`` and the
+   single-device ELL FEMSystem, both at cg_eps 1e-10: the same history
+   (pinned), dof 1e-8, energy 1e-10, M8 twice a shard an evaluation; then
+   the arch of phase 31 at its fixture's 64 x 2 with the rescue, once on
+   the single device (its rescue record pinned) and in 2 banded shards
+   resumed from that run's last state before the rescue: the same
+   records, min uy within 1e-6.
+39. print the launch counts and the CG iterations of every path, each
    beside the count that the deterministic kernels have always given, and
    fail on another count (a kernel changed its rounding), and the Newton
    histories beside the pinned ones; then the kernel table as one JSON
@@ -363,7 +391,8 @@ Phases (any failure raises, and the script exits non-zero):
    of the path that runs it (P1 and P3 from the multigrid slice, P2 and
    M5 from the box Newton path, M1 and M2 from the ELL slice, M4 from the
    ELL Newton path, M3 from the AMG slice, M6 from the mixed box, P1's
-   windowed entry point from the multigrid slab of phase 33); then
+   windowed entry point from the multigrid slab of phase 33, M7 from the
+   sharded ELL solve, M8 from the banded cell); then
    the result line
    ``{"ok": true, "device": {...}}`` last.
 """
@@ -407,7 +436,8 @@ EXPECTED_CG_ITERS = {"multigrid box": 6, "jacobi box": 257, "ELL slice": 312,
                      "hex+wedge": 188, "CLI, multi-block": 188,
                      "mixed box": 1125, "dense CG, ELL": 438,
                      "dense CG, box": 250, "slab, multigrid": 18,
-                     "slab, jacobi": 1075}
+                     "slab, jacobi": 1075, "sharded ELL": 314,
+                     "banded cell": 48}
 #: the Newton cases' time schedule: the top face turned by time * pi about
 #: the box axis, 3.6 degrees in five increments.  Each increment's first
 #: Newton iterate puts its whole turn into the top element layer, 1/56
@@ -431,7 +461,9 @@ EXPECTED_NEWTON = {"box Newton": [(2, True)] * 5, "ELL Newton": [(2, True)] * 5,
                    "ELL Newton, fused": [(2, True)] * 5,
                    "box fused": [(1, True)] * 5,
                    "device loop": [(2, True)] * 5,
-                   "slab Newton": [(2, True)] * 5}
+                   "slab Newton": [(2, True)] * 5,
+                   "banded Newton, secant": [(14, True), (12, True)],
+                   "banded Newton, consistent": [(18, True), (11, True)]}
 #: the dissipated-energy fraction of the stabilized cases (the CLI's
 #: ``--stabilize`` and ``SolverConfig.stabilize_factor``)
 STABILIZE = 2e-4
@@ -482,9 +514,22 @@ DENSE_NX, DENSE_BOX, DENSE_MAX_DOF = 20, 12, 30_000
 #: phase was added
 ARCH_RISE, ARCH_FINE, ARCH_FIXTURE = 8.0, (512, 8), (64, 2)
 EXPECTED_RESCUE = (0.062129448, 64)
+#: the rescue's record at ARCH_FIXTURE (the banded rescue's reference
+#: run) as the card and the CPU have given it
+EXPECTED_RESCUE_FIXTURE = (0.077881736, 63)
 #: the slab phases' shard count: four slabs of 14 cell planes of the NX=56
 #: box, all on the one card
 SLABS = 4
+#: the sharded and banded phases' shard count, all on the one card; the
+#: banded arch rescue's (its tiny shards' launches bound its wall)
+SHARDS, RESCUE_SHARDS = 4, 2
+#: the banded phases: BANDED_SWEEP.json's largest cell (530,523 dofs) and
+#: the iterations its JAX CPU sweep took at 4 devices; the nlgeom
+#: cantilever of the banded Newton phase (24,543 dofs)
+BANDED_CELL, BANDED_SWEEP_ITERS = (400, 20), 48
+#: its block size and row blocks a shard at SHARDS shards
+BANDED_CELL_BLOCKS = (1328, 100)
+BANDED_NL = (100, 8)
 
 
 def check(ok: bool, what: str) -> None:
@@ -622,6 +667,7 @@ def launch_counters():
     """Every kernel wrapper by its row name in the kernel table."""
     from femcy_tpu_torch.kernels import (
         bell_spmv,
+        btd_scatter,
         dia_spmv,
         ell_scatter,
         ell_spmv,
@@ -641,7 +687,8 @@ def launch_counters():
             "internal_force": internal_force.scatter_force,
             "structured_force": structured_force.force_scatter,
             "bell_spmv": bell_spmv.spmv,
-            "mixed_scatter": mixed_scatter.scatter}
+            "mixed_scatter": mixed_scatter.scatter,
+            "btd_scatter": btd_scatter.scatter}
 
 
 def zero_launches() -> None:
@@ -4786,6 +4833,543 @@ def slab_newton_run(torch, card, single):
     return launches, history
 
 
+def clamp_top_ux(mesh, ux: float):
+    """``boundary_model``'s arrays: z = 0 clamped, ux on z = max; (rhs,
+    fixed, sval) numpy."""
+    bottom, top = z_faces(mesh)
+    fixed = np.zeros(mesh.n_dof, bool)
+    sval = np.zeros(mesh.n_dof)
+    for d in range(3):
+        fixed[bottom * 3 + d] = True
+    fixed[top * 3] = True
+    sval[top * 3] = ux
+    return np.zeros(mesh.n_dof), fixed, sval
+
+
+def host_residual(K, x, rhs, fixed, sval) -> float:
+    """max|K x - rhs| over the free rows of the f64 host operator K (no
+    boundary conditions), relative to the largest entry of the eliminated
+    right-hand side (rhs - K x_c on the free rows), with x's prescribed
+    entries set to sval."""
+    x = np.where(fixed, sval, x)
+    free = ~fixed
+    b = rhs - K @ np.where(fixed, sval, 0.0)
+    r = K @ x - rhs
+    return float(np.abs(r[free]).max() / np.abs(b[free]).max())
+
+
+def sharded_ell_run(torch, card, host_K):
+    """Phase 35: unstructured_box_tets(56) (``clamp_top_ux``, ux 0.01)
+    through ``ShardedLinearSolver`` in SHARDS shards on the one card: at
+    cg_eps 1e-3 its CG iterations (pinned as "sharded ELL", printed beside
+    the single-device ELL slice's 312), M1 SHARDS times (M7: one partial a
+    shard) and M2 SHARDS times an iteration; at cg_eps 1e-10 x within 1e-8
+    (inf-norm, relative) of the single-device FEMSystem's Jacobi CG at the
+    same cg_eps and its f64 host residual (``host_K``) below 1e-8; then
+    one ``ShardedNewtonStep`` at a seeded state, cg_eps 1e-10, against
+    the single-device evaluation: rms within 1e-10 relative, and its step
+    du = pinned dof - new dof solves the single device's tangent system,
+    max|K du - r| / max|r| below 1e-8 (K and r the single-device
+    evaluation's, the product the plain ELL SpMV; the same gate for the
+    single device's own CG at 1e-10).  The gate holds wherever either CG
+    stopped: two Jacobi CGs that sum in other orders stop at other
+    iterates, so the two new dofs are printed beside each other but not
+    compared.  M1 and M4 SHARDS times.  Returns ({path: launches},
+    {path: iterations})."""
+    from femcy_tpu_torch import FEMSystem, LinearIsotropic, SolverConfig
+    from femcy_tpu_torch.meshgen import unstructured_box_tets
+    from femcy_tpu_torch.parallel import ShardedLinearSolver, ShardedNewtonStep
+    from femcy_tpu_torch.solvers.cg import ell_spmv
+    from femcy_tpu_torch.topology import build_pattern
+
+    t_phase = time.perf_counter()
+    mesh = unstructured_box_tets(UNSTRUCT[-1])
+    mat = LinearIsotropic(1000.0, 0.3)
+    rhs, fixed, sval = clamp_top_ux(mesh, 0.01)
+    pattern = build_pattern(mesh)
+    devices = [DEVICE] * SHARDS
+    t = time.perf_counter()
+    sh = ShardedLinearSolver(mesh, mat, devices=devices, cg_eps=1e-3,
+                             pattern=pattern)
+    setup_s = time.perf_counter() - t
+    zero_launches()
+    t = time.perf_counter()
+    x3, it3 = sh.solve(rhs, fixed, sval)
+    torch.cuda.synchronize()
+    solve3_s = time.perf_counter() - t
+    launches = read_launches()
+    check(launches["ell_scatter"] == SHARDS
+          and launches["ell_spmv"] == SHARDS * it3,
+          f"sharded ELL: launches {launches} for {it3} iterations")
+    for name, n in launches.items():
+        if name not in ("ell_scatter", "ell_spmv"):
+            check(n == 0, f"sharded ELL: {name} launched {n} times")
+    check(np.isfinite(x3).all() and np.abs(x3).max() > 0, "sharded ELL: x")
+    del sh
+    sh = ShardedLinearSolver(mesh, mat, devices=devices, cg_eps=1e-10,
+                             pattern=pattern)
+    t = time.perf_counter()
+    x10, it10 = sh.solve(rhs, fixed, sval)
+    solve10_s = time.perf_counter() - t
+    del sh
+    single = FEMSystem(mesh, mat, config=SolverConfig(
+        cg_eps=1e-10, linear_solver="cg"), device=DEVICE)
+    check(single.solve(boundary_model(mesh, 0.01)).success,
+          "sharded ELL: the single-device solve")
+    x_single = single.dof.cpu().numpy()
+    it_single = single._last_cg_iters
+    del single
+    rel = float(np.abs(x10 - x_single).max() / np.abs(x_single).max())
+    res = host_residual(host_K, x10, rhs, fixed, sval)
+    check(rel <= 1e-8, f"sharded ELL vs single device at 1e-10: {rel:.3e}")
+    check(res <= 1e-8, f"sharded ELL: f64 host residual {res:.3e}")
+    print(f"sharded ELL, {SHARDS} shards on {card}: {mesh.n_dof} dofs, setup "
+          f"{setup_s:.2f} s; cg_eps 1e-3: CG {it3} iterations (the "
+          f"single-device ELL slice {EXPECTED_CG_ITERS['ELL slice']}) in "
+          f"{solve3_s:.3f} s; cg_eps 1e-10: {it10} iterations (single "
+          f"device {it_single}) in {solve10_s:.3f} s, x rel {rel:.3e} of the "
+          f"single device's, f64 host residual {res:.3e}; launches "
+          f"{launches}", flush=True)
+    torch.cuda.empty_cache()
+
+    # one Newton step, sharded against the single device
+    rng = np.random.default_rng(4)
+    dof0 = 1e-3 * rng.standard_normal(mesh.n_dof)
+    f_ext = np.zeros(mesh.n_dof)
+    _, top = z_faces(mesh)
+    f_ext[top * 3 + 1] = 1e-3
+    step = ShardedNewtonStep(mesh, mat, devices=devices, cg_eps=1e-10,
+                             pattern=pattern)
+    zero_launches()
+    t = time.perf_counter()
+    d_sh, rms_sh, k_sh = step.step(dof0, f_ext, fixed, sval)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t
+    step_launches = read_launches()
+    d_sh = d_sh.cpu().numpy()
+    del step
+    single = FEMSystem(mesh, mat, True, SolverConfig(
+        cg_eps=1e-10, linear_solver="cg"), device=DEVICE)
+
+    def dev(a, dt=torch.float64):
+        return torch.as_tensor(a, dtype=dt, device=DEVICE)
+
+    dof_p, values, residual, rms, _ = single._newton_eval(
+        dev(dof0), dev(f_ext), dev(fixed, torch.bool), dev(sval))
+    du = single._solve_linear_system(values, residual, dev(fixed, torch.bool))
+    k_single = single._last_cg_iters
+    colidx = single._arrs["colidx"]
+
+    def step_residual(step):
+        r = ell_spmv(values, colidx, step) - residual
+        return float(r.abs().max() / residual.abs().max())
+
+    res_sh = step_residual(dof_p - dev(d_sh))
+    res_single = step_residual(du)
+    d_single = (dof_p - du).cpu().numpy()
+    del single, values, residual, du, colidx
+    rel_d = float(np.abs(d_sh - d_single).max() / np.abs(d_single).max())
+    rel_r = abs(float(rms_sh) - float(rms)) / float(rms)
+    check(step_launches["ell_scatter"] == SHARDS
+          and step_launches["internal_force"] == SHARDS
+          and step_launches["ell_spmv"] == SHARDS * k_sh,
+          f"sharded Newton step: launches {step_launches}")
+    check(rel_r <= 1e-10 and res_sh <= 1e-8 and res_single <= 1e-8,
+          f"sharded Newton step vs the single-device evaluation: rms "
+          f"{rel_r:.3e}, step residual {res_sh:.3e} (single device's CG "
+          f"{res_single:.3e})")
+    print(f"sharded Newton step on {card}: {step_s:.3f} s, CG {k_sh} "
+          f"iterations (single device {k_single}), rms rel {rel_r:.3e} of "
+          f"the single device's; max|K du - r|/max|r| on the single "
+          f"device's tangent {res_sh:.3e} (its own CG's {res_single:.3e}); "
+          f"new dof rel {rel_d:.3e} of the single device's (not gated); "
+          f"launches {step_launches}; phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    return ({"sharded ELL": launches, "sharded Newton step": step_launches},
+            {"sharded ELL": it3})
+
+
+def m7_checks(torch, card, results):
+    """Phase 36, M7: shard 0 of SHARDS of the ELL slice's mesh: M1 and M4
+    on the shard's plan bit for bit against their plain versions run on
+    the CPU, in float32 and float64, and timed in float64 in turns with
+    the plain versions and one ``index_add_`` over the shard's targets,
+    beside the bound (the shard's Ke or f_e, its plan and the full-height
+    partial)."""
+    from femcy_tpu_torch import assembly
+    from femcy_tpu_torch.kernels import ell_scatter as k_scat
+    from femcy_tpu_torch.kernels import internal_force as k_force
+    from femcy_tpu_torch.materials import LinearIsotropic
+    from femcy_tpu_torch.meshgen import unstructured_box_tets
+    from femcy_tpu_torch.parallel.sharded import (
+        build_sharded_operands,
+        shard_element_ids,
+    )
+    from femcy_tpu_torch.topology import build_pattern
+
+    t_phase = time.perf_counter()
+    mesh = unstructured_box_tets(UNSTRUCT[-1])
+    mat = LinearIsotropic(1000.0, 0.3)
+    pattern = build_pattern(mesh)
+    ops = build_sharded_operands(mesh, mat, SHARDS, pattern=pattern)
+    ids = shard_element_ids(ops, 0)
+    t = time.perf_counter()
+    plan = k_scat.build_scatter_plan(pattern, DEVICE, elements=ids)
+    plan_s = time.perf_counter() - t
+    f_np = np.random.default_rng(9).standard_normal(
+        (ids.shape[0], mesh.element.n_nodes, mesh.dm))
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[1]
+
+        def dev(a):
+            return torch.as_tensor(np.asarray(a), dtype=dtype, device=DEVICE)
+
+        elements = torch.as_tensor(mesh.elements[ids].astype(np.int64),
+                                   device=DEVICE)
+        dsdx, vol = assembly.gradients_and_volume(
+            dev(mesh.nodes), elements, dev(mesh.element.dshape_at_gp),
+            dev(mesh.element.gauss_weights))
+        Ke = assembly.element_stiffness(dsdx, vol, dev(mat.C))
+        del dsdx, vol
+        v_k, abs1 = m1_against_cpu_plain(torch, Ke, plan, f"M7 shard {name}")
+        f_e = dev(f_np)
+        f_k, abs4 = m4_against_cpu_plain(torch, f_e, plan, f"M7 shard {name}")
+        print(f"M7 on {card}, shard 0 of {SHARDS} ({ids.shape[0]} of "
+              f"{mesh.n_elements} elements, plan {plan_s:.2f} s) {name}: M1 "
+              "and M4 on the shard's plan bit-equal to their CPU plain "
+              "versions, bit-identical reruns", flush=True)
+        if dtype == torch.float64:
+            targets = k_scat.contribution_targets(plan)
+            lib_out = torch.zeros(plan.out_shape, dtype=dtype,
+                                  device=DEVICE).view(-1)
+            ke_flat = Ke.view(-1)
+            ms, pms, lms = in_turns(
+                lambda: k_scat.scatter_plain(Ke, plan),
+                lambda: k_scat.scatter(Ke, plan), 3, 10,
+                lambda: lib_out.zero_().index_add_(0, targets, ke_flat))
+            del targets, lib_out
+            isz = Ke.element_size()
+            b = bound((Ke.numel() + v_k.numel()) * isz + plan_bytes(plan),
+                      Ke.numel(), name)
+            f_row = m4_timing(torch, card, f_e, f_k, abs4, plan,
+                              f"M7 force, shard 0 of {SHARDS}")
+            print(f"timing M7 on {card}, shard 0 of {SHARDS} {name}: "
+                  f"stiffness partial (M1) {ms:.4f} ms, plain {pms:.4f} ms, "
+                  f"index_add_ {lms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}); "
+                  f"force partial (M4) {f_row['ms']:.4f} ms, bound "
+                  f"{f_row['bound_ms']:.4f} ms", flush=True)
+            results[name]["ell_scatter_shard"] = row(abs1, ms, pms, lms, b)
+        del Ke, v_k, f_e, f_k
+    del plan, ops
+    torch.cuda.empty_cache()
+    print(f"M7 checks: phase wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def m8_checks(torch, card, sh, results):
+    """Phase 36, M8: the stiffness and force plans of shard 0 of the
+    banded cell (``sh``, phase 37's solver) on seeded entries in float32
+    and float64, bit for bit against the plain version run on the CPU and
+    against a rerun; timed in float64 in turns with the plain version and
+    one zeroed ``index_add_`` over the prebuilt targets, beside the bound
+    (entries and plan read once, the whole output written once)."""
+    from femcy_tpu_torch.kernels import btd_scatter
+
+    s = sh.shards[0]
+    rng = np.random.default_rng(11)
+    for kind, plan in (("stiffness", s.plan_k), ("force", s.plan_f)):
+        vals_np = rng.standard_normal(plan.n_entries)
+        cpu_plan = plan_on_cpu(torch, plan)
+        for dtype in (torch.float32, torch.float64):
+            name = str(dtype).split(".")[1]
+            vals = torch.as_tensor(vals_np, dtype=dtype, device=DEVICE)
+            out = btd_scatter.scatter(vals, plan)
+            ref = btd_scatter.scatter_plain(vals.cpu(), cpu_plan)
+            got = out.cpu()
+            abs_err = float((got - ref).abs().max())
+            check(torch.equal(got, ref), f"M8 {kind} {name}: not bit-equal "
+                  f"to the CPU plain version ({abs_err:.3e})")
+            check(torch.equal(out, btd_scatter.scatter(vals, plan)),
+                  f"M8 {kind} {name}: rerun not bit-identical")
+            del got, ref
+            msg = (f"M8 {kind} on {card}, shard 0 of {SHARDS} {name}: "
+                   f"{plan.n_entries} entries, {plan.run_target.numel()} "
+                   f"runs into {plan.n_out} slots: bit-equal to the CPU "
+                   "plain version, bit-identical rerun")
+            if dtype == torch.float64:
+                targets = btd_scatter.targets_of(plan)
+                lib_out = torch.empty_like(out)
+                ms, pms, lms = in_turns(
+                    lambda: btd_scatter.scatter_plain(vals, plan),
+                    lambda: btd_scatter.scatter(vals, plan), 2, 5,
+                    lambda: lib_out.zero_().index_add_(0, targets, vals))
+                del targets, lib_out
+                isz = vals.element_size()
+                n_bytes = ((plan.n_entries + plan.n_out) * isz
+                           + plan.order.numel() * plan.order.element_size()
+                           + (plan.run_start.numel()
+                              + plan.run_target.numel()) * 8)
+                b = bound(n_bytes, plan.n_entries, name)
+                msg += (f"; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+                        f"index_add_ {lms:.4f} ms, bound {b[0]:.4f} ms "
+                        f"({b[1]}, {n_bytes / 1e9:.3f} GB)")
+                if kind == "stiffness":
+                    results[name]["btd_scatter"] = row(abs_err, ms, pms, lms,
+                                                       b)
+            print(msg, flush=True)
+            del vals, out
+        torch.cuda.empty_cache()
+
+
+def banded_cell_run(torch, card, results):
+    """Phases 36 (M8) and 37: BANDED_SWEEP.json's largest cell,
+    cantilever_tets(400, 20) (530,523 dofs) with its loading (the x = 0
+    end clamped, a unit x-force on every node of the x = 10 end; as
+    tools/banded_cell.py loads it), through ``BandedShardedSolver`` in
+    SHARDS shards on the one card, twolevel, cg_eps 1e-5: B 1328 and nbl
+    100, M8 checked and timed on shard 0's plans (``m8_checks``) before
+    the solve, then the solve (M8 once a shard), its iterations (pinned as
+    "banded cell", beside the JAX CPU sweep's 48), the setup, assembly,
+    factor and CG walls, peak device memory, and the f64 host residual
+    below 1e-4 (the CG stops at 1e-5 of its initial residual); the
+    Thomas sweep's and the SpMV's device ms once each.  Returns
+    ({path: launches}, {path: iterations})."""
+    from femcy_tpu_torch.assembly_host import assemble_csr_host
+    from femcy_tpu_torch.materials import LinearIsotropic
+    from femcy_tpu_torch.meshgen import cantilever_tets
+    from femcy_tpu_torch.parallel import banded as pb
+    from femcy_tpu_torch.topology import build_pattern
+
+    t_phase = time.perf_counter()
+    mesh, fixed_nodes, loaded = cantilever_tets(*BANDED_CELL)
+    mat = LinearIsotropic(1000.0, 0.3)
+    fixed = np.zeros(mesh.n_dof, bool)
+    for d in range(3):
+        fixed[fixed_nodes * 3 + d] = True
+    rhs = np.zeros(mesh.n_dof)
+    rhs[loaded * 3] = 1.0
+    sval = np.zeros(mesh.n_dof)
+    t = time.perf_counter()
+    pattern = build_pattern(mesh)
+    pattern_s = time.perf_counter() - t
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    sh = pb.BandedShardedSolver(mesh, mat, devices=[DEVICE] * SHARDS,
+                                cg_eps=1e-5, pattern=pattern)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    ops = sh.ops
+    print(f"banded cell: cantilever_tets{BANDED_CELL}, {mesh.n_elements} "
+          f"tets, {mesh.n_dof} dofs, B {ops.B}, nbl {ops.nbl}, "
+          f"{SHARDS} shards of up to {ops.elements.shape[1]} elements; host "
+          f"ELL pattern {pattern_s:.2f} s, solver setup (RCM, operands, "
+          f"coarse basis, M8 plans) {setup_s:.2f} s", flush=True)
+    check((ops.B, ops.nbl) == BANDED_CELL_BLOCKS, f"banded cell: B {ops.B}, "
+          f"nbl {ops.nbl}, expected {BANDED_CELL_BLOCKS}")
+    m8_checks(torch, card, sh, results)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t = time.perf_counter()
+    x, iters = sh.solve(rhs, fixed, sval)
+    solve_s = time.perf_counter() - t
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    walls = ", ".join(f"{k} {v:.3f} s" for k, v in sh.last_seconds.items())
+    check(launches["btd_scatter"] == SHARDS,
+          f"banded cell: M8 launched {launches['btd_scatter']} times")
+    for name, n in launches.items():
+        if name != "btd_scatter":
+            check(n == 0, f"banded cell: {name} launched {n} times")
+    check(np.isfinite(x).all() and np.abs(x).max() > 0, "banded cell: x")
+    # one Thomas sweep (all shards) and one SpMV, device ms
+    V = sh.assemble()
+    fixed_s = list(sh._stack(fixed, fill=True))
+    pb._btd_dirichlet(V, fixed_s, list(sh._stack(rhs)),
+                      list(sh._stack(sval)))
+    thomas, _, _ = sh._minv_cache
+    rs = [torch.ones_like(f, dtype=torch.float64) for f in fixed_s]
+    sweep_ms = cuda_ms(lambda: pb._local_solve(thomas, sh._group_ids(), rs), 3)
+    spmv_ms = cuda_ms(lambda: pb._btd_spmv(V, rs), 5)
+    del V, thomas, rs
+    sh._minv_cache = None
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    K = assemble_csr_host(mesh, pattern, mat.C)
+    host_s = time.perf_counter() - t
+    res = host_residual(K, x, rhs, fixed, sval)
+    del K
+    check(res <= 1e-4, f"banded cell: f64 host residual {res:.3e}")
+    print(f"banded cell on {card}: twolevel CG {iters} iterations (the JAX "
+          f"CPU sweep: {BANDED_SWEEP_ITERS} at {SHARDS} devices) in "
+          f"{solve_s:.2f} s ({walls}); peak device memory {peak / 1e9:.2f} "
+          f"GB; one Thomas sweep {sweep_ms:.3f} ms and one SpMV "
+          f"{spmv_ms:.3f} ms (device); f64 host residual {res:.3e} (host "
+          f"operator {host_s:.2f} s); launches {launches}; phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    del sh
+    torch.cuda.empty_cache()
+    return {"banded cell": launches}, {"banded cell": iters}
+
+
+def banded_nl_model(mesh, fixed_nodes, loaded):
+    """tests/test_banded.py's nlgeom cantilever: the x = 0 end clamped, a
+    traction of 2 along z on the x = length end's faces, *Static 0.5, 1,
+    1e-4, 0.5."""
+    from femcy_tpu_torch.io.inp import DirichletBC, InpModel, NeumannBC
+
+    lset = set(loaded.tolist())
+    faces = [f for f in mesh.boundary if all(n in lset for n in f)]
+    return InpModel(
+        nodes=mesh.nodes, elements=mesh.elements, element_type="C3D4",
+        node_sets={}, ele_sets={}, face_sets={},
+        dirichlet_bcs=[DirichletBC(fixed_nodes, d, 0.0) for d in range(3)],
+        neumann_bcs=[NeumannBC(face_set=faces, traction=2.0,
+                               direction=np.array([0.0, 0.0, 1.0]))],
+        material_type="Elastic", material_params=[1000.0, 0.3],
+        geometric_nonlinear=True,
+        time_incs=dict(ini_inc=0.5, max_time=1.0, min_inc=1e-4, max_inc=0.5),
+    )
+
+
+def banded_newton_run(torch, card):
+    """Phase 38: ``banded_nl_model`` on cantilever_tets(BANDED_NL) through
+    FEMSystem(sharding="banded", sharding_devices=SHARDS) and the
+    single-device ELL FEMSystem (Jacobi CG), both at cg_eps 1e-10, with
+    the secant and the consistent tangent: the histories equal (pinned in
+    EXPECTED_NEWTON), dof within 1e-8 and elastic energy within 1e-10
+    relative, M8 2 * SHARDS times an evaluation and no other kernel in
+    the banded runs; then phase 31's arch at its test fixture's size
+    ARCH_FIXTURE with ``dynamic_rescue``, the consistent tangent: once on
+    the single device from t = 0 (success, the rescue's record against
+    EXPECTED_RESCUE_FIXTURE), then in RESCUE_SHARDS banded shards resumed
+    from that run's last converged state before the rescue: the same
+    records from there on, success and min uy within 1e-6 relative.
+    Returns ({path: launches}, {path: history})."""
+    from femcy_tpu_torch import FEMSystem, LinearIsotropic, SolverConfig
+    from femcy_tpu_torch import material_from_inp
+    from femcy_tpu_torch.mesh import FEMesh
+    from femcy_tpu_torch.meshgen import cantilever_tets
+
+    t_phase = time.perf_counter()
+    mesh, fixed_nodes, loaded = cantilever_tets(*BANDED_NL)
+    model = banded_nl_model(mesh, fixed_nodes, loaded)
+    mat = LinearIsotropic(1000.0, 0.3)
+    by_path, histories = {}, {}
+    for tangent in ("secant", "consistent"):
+        runs = {}
+        for label, extra in (("single", dict(linear_solver="cg")),
+                             ("banded", dict(sharding="banded",
+                                             sharding_devices=SHARDS))):
+            system = FEMSystem(mesh, mat, True, SolverConfig(
+                sparse_format="ell", cg_eps=1e-10, newton_boost_max=0,
+                tangent=tangent, **extra), device=DEVICE)
+            zero_launches()
+            t = time.perf_counter()
+            rep = system.solve(model)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            evals = sum(r.name == "newton_eval" for r in system.timer.records)
+            runs[label] = dict(
+                launches=read_launches(), wall=wall, evals=evals,
+                history=[(r.newton_iters, r.converged)
+                         for r in rep.increments],
+                dof=system.dof.cpu().numpy(), energy=system.elastic_energy(),
+                cg=list(system._cg_iters_log), ok=rep.success)
+            del system
+            torch.cuda.empty_cache()
+        s, b = runs["single"], runs["banded"]
+        rel = float(np.abs(b["dof"] - s["dof"]).max() / np.abs(s["dof"]).max())
+        rel_e = abs(b["energy"] - s["energy"]) / abs(s["energy"])
+        path = f"banded Newton, {tangent}"
+        print(f"{path}, cantilever_tets{BANDED_NL} ({mesh.n_dof} dofs), "
+              f"{SHARDS} shards on {card}: {b['wall']:.2f} s, {b['evals']} "
+              f"evaluations, history {b['history']} (single device "
+              f"{s['history']} in {s['wall']:.2f} s), CG iterations "
+              f"{b['cg']} (single device {s['cg']}), dof rel {rel:.3e}, "
+              f"energy rel {rel_e:.3e}; launches {b['launches']}",
+              flush=True)
+        check(b["ok"] and s["ok"], f"{path}: a run failed")
+        check(b["history"] == s["history"],
+              f"{path}: history {b['history']}, single {s['history']}")
+        check(rel <= 1e-8 and rel_e <= 1e-10,
+              f"{path} vs single device: dof {rel:.3e}, energy {rel_e:.3e}")
+        check(b["launches"]["btd_scatter"] == 2 * SHARDS * b["evals"],
+              f"{path}: M8 {b['launches']} for {b['evals']} evaluations")
+        for name, n in b["launches"].items():
+            if name != "btd_scatter":
+                check(n == 0, f"{path}: {name} launched {n} times")
+        by_path[path], histories[path] = b["launches"], b["history"]
+
+    # the arch rescue at the fixture size: the single device from t = 0,
+    # then banded from its last converged state before the rescue
+    arch = arch_model(*ARCH_FIXTURE)
+    amat = material_from_inp(arch.material_type, arch.material_params,
+                             arch.element_type)
+    amesh = FEMesh(arch.nodes, arch.elements, arch.element)
+    single = FEMSystem(amesh, amat, True, SolverConfig(
+        tangent="consistent", dynamic_rescue=True), device=DEVICE)
+    seen = []  # (record, dof at its end) of every increment, in order
+    with _Warnings():
+        t = time.perf_counter()
+        rep_s = single.solve(arch, on_increment=lambda s_, r: seen.append(
+            (r, s_.dof.cpu().numpy())))
+        single_s = time.perf_counter() - t
+    uy_s = float(single.dof.cpu().numpy().reshape(-1, 2)[:, 1].min())
+    recs = rep_s.increments
+    rec = [r for r in recs if r.converged and r.residual == 0.0]
+    check(rep_s.success and len(rec) == 1,
+          f"arch rescue at {ARCH_FIXTURE}: {rep_s.success}, records {rec}")
+    got = (round(rec[0].time, 9), rec[0].newton_iters)
+    check(got == EXPECTED_RESCUE_FIXTURE, f"arch rescue at {ARCH_FIXTURE}: "
+          f"(t_resc, Newmark steps) {got}, {EXPECTED_RESCUE_FIXTURE} "
+          "expected")
+    k = recs.index(rec[0])
+    i = [j for j in range(k) if recs[j].converged][-1]
+    t_i, dt_i = recs[i].time, recs[i].dt
+    history = [(r.newton_iters, r.converged) for r in recs]
+    del single
+    print(f"rescue, arch {ARCH_FIXTURE} ({amesh.n_dof} dofs) on {card}: "
+          f"{single_s:.2f} s from t = 0, {len(recs)} records, the rescue's "
+          f"record {k} at t {rec[0].time:.9f} ({rec[0].newton_iters} "
+          f"Newmark steps), min uy {uy_s:.9f}", flush=True)
+    banded = FEMSystem(amesh, amat, True, SolverConfig(
+        tangent="consistent", dynamic_rescue=True, sharding="banded",
+        sharding_devices=RESCUE_SHARDS, cg_max_iters=4 * arch.nodes.size),
+        device=DEVICE)
+    banded.dof = torch.as_tensor(
+        next(d for r, d in seen if r is recs[i]), device=DEVICE)
+    banded.time0 = banded.time1 = t_i
+    banded.dt = dt_i
+    zero_launches()
+    t = time.perf_counter()
+    rep_b = banded.solve(arch, resume=True)
+    torch.cuda.synchronize()
+    banded_s = time.perf_counter() - t
+    rescue_launches = read_launches()
+    uy_b = banded.dof.cpu().numpy().reshape(-1, 2)[:, 1].min()
+    tail = history[i + 1:]
+    got = [(r.newton_iters, r.converged) for r in rep_b.increments]
+    rel_uy = abs(uy_b - uy_s) / abs(uy_s)
+    print(f"banded rescue, arch {ARCH_FIXTURE} ({amesh.n_dof} dofs), "
+          f"{RESCUE_SHARDS} shards on {card}: resumed at t {t_i:.6f} from "
+          f"the single-device run, {banded_s:.2f} s, "
+          f"{len(rep_b.increments)} records (single device "
+          f"{len(tail)} from there), min uy {uy_b:.9f} (single device "
+          f"{uy_s:.9f}, rel {rel_uy:.3e}); launches {rescue_launches}; "
+          f"phase wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+    check(rep_b.success and banded.time0 == 1.0,
+          f"banded rescue: {rep_b.success} at {banded.time0}")
+    check(got == tail, f"banded rescue: records {got}, single {tail}")
+    check(uy_b < -2 * ARCH_RISE and rel_uy <= 1e-6,
+          f"banded rescue: min uy {uy_b}, single {uy_s}")
+    check(rescue_launches["btd_scatter"] > 0, "banded rescue: no M8")
+    by_path["banded rescue"] = rescue_launches
+    del banded
+    torch.cuda.empty_cache()
+    return by_path, histories
+
+
 def main() -> int:
     card = card_line()
     print(card, flush=True)
@@ -4833,6 +5417,7 @@ def main() -> int:
         torch, card, unstructured_box_tets(UNSTRUCT[-1]), "ell", host_K,
         keep=jacobi)
     by_path["ELL slice"] = ell
+    ell_host_K = host_K  # the sharded phase's residual check
     del host_K
     launches["ell_scatter"] = ell["ell_scatter"]
     launches["ell_spmv"] = ell["ell_spmv"]
@@ -4957,6 +5542,22 @@ def main() -> int:
     del box_single
     print(f"rescue and slab phases: wall {time.perf_counter() - t:.1f} s",
           flush=True)
+    t = time.perf_counter()
+    paths, its = sharded_ell_run(torch, card, ell_host_K)
+    by_path.update(paths)
+    iters.update(its)
+    del ell_host_K
+    m7_checks(torch, card, results)
+    paths, its = banded_cell_run(torch, card, results)
+    by_path.update(paths)
+    iters.update(its)
+    paths, hist = banded_newton_run(torch, card)
+    by_path.update(paths)
+    histories.update(hist)
+    print(f"sharded and banded phases: wall {time.perf_counter() - t:.1f} s",
+          flush=True)
+    launches["ell_scatter_shard"] = by_path["sharded ELL"]["ell_scatter"]
+    launches["btd_scatter"] = by_path["banded cell"]["btd_scatter"]
     launches["dia_spmv_window"] = by_path["slab, multigrid"][
         "dia_spmv_window"]
     launches["mixed_scatter"] = by_path["mixed box"]["mixed_scatter"]
@@ -5008,6 +5609,11 @@ def main() -> int:
                       "femcy_tpu/solvers/bell.py:147"),
         "mixed_scatter": ("femcy_tpu_torch/csrc/mixed_scatter.cu",
                           "femcy_tpu/mixed.py:245"),
+        # M7: M1 on a plan per element shard (M4 likewise for the forces)
+        "ell_scatter_shard": ("femcy_tpu_torch/csrc/ell_scatter.cu",
+                              "femcy_tpu/parallel/sharded.py:180"),
+        "btd_scatter": ("femcy_tpu_torch/csrc/btd_scatter.cu",
+                        "femcy_tpu/parallel/banded.py:679"),
     }
     rows = []
     for name, (src, replaces) in source.items():

@@ -15,11 +15,9 @@ from __future__ import annotations
 
 import dataclasses
 
-#: (field, predicate on its value, the later slice that implements it)
-_LATER = (
-    ("sharding", lambda v: v == "banded",
-     "banded multi-device sharding (ROADMAP slice I.3)"),
-)
+#: (field, predicate on its value, the later slice that implements it);
+#: empty since slice I.3, the last one
+_LATER = ()
 
 _CHOICES = {
     "linear_solver": ("auto", "direct", "cg"),
@@ -113,9 +111,9 @@ class SolverConfig:
     #: solves and the full adaptive-stepping Newton state machine) over
     #: x-slabs of a structured box_tets mesh whose nx is divisible by the
     #: shard count (parallel/structured.py): one process drives every shard,
-    #: the halos move between the shards' tensors.  "banded" (every .inp
-    #: model: RCM ordering + block-tridiagonal row shards) is femcy_tpu's
-    #: and raises until ROADMAP slice I.3.
+    #: the halos move between the shards' tensors.  "banded" shards every
+    #: .inp model (RCM ordering + block-tridiagonal row shards,
+    #: parallel/banded.py) the same way.
     sharding: str = "none"
     #: number of shards; 0 = one per CUDA card (torch.cuda.device_count()).
     #: Shard i lives on card i % device count, or on the CPU for a CPU

@@ -133,10 +133,17 @@ def with_orphan_node(plan: ScatterPlan, k: int) -> ScatterPlan:
 
 
 def build_scatter_plan(pattern: ELLPattern, device,
-                       dia: Optional[DIAPattern] = None) -> ScatterPlan:
+                       dia: Optional[DIAPattern] = None,
+                       elements: Optional[np.ndarray] = None) -> ScatterPlan:
     """The kernel's operands for ``pattern`` on ``device``; with ``dia``
     the output is that DIA layout's values (every (col - row) offset of the
-    pattern must be one of ``dia.offsets``)."""
+    pattern must be one of ``dia.offsets``).
+
+    ``elements`` (ascending element ids) restricts the plan to those
+    elements, numbered 0.. in that order: Ke (and M4's f_e) then holds
+    just them, and the output is still the whole pattern, each slot the
+    sum of the subset's contributions in element order (0 where it has
+    none) -- one shard's partial of the sharded assembly."""
     if pattern.block_targets is None or pattern.node_width == 0:
         raise ValueError("the scatter needs a pattern with a node-block map")
     bt = np.asarray(pattern.block_targets)
@@ -145,6 +152,13 @@ def build_scatter_plan(pattern: ELLPattern, device,
     dm = pattern.width // pattern.node_width
     if npe * npe * E != bt.shape[0] or dm * pattern.node_width != pattern.width:
         raise ValueError("block map does not match the pattern's shapes")
+    if elements is not None:
+        elements = np.asarray(elements, dtype=np.int64)
+        if elements.size and (np.any(np.diff(elements) <= 0)
+                              or elements[0] < 0 or elements[-1] >= E):
+            raise ValueError("elements must be ascending ids of the pattern")
+        bt = bt.reshape(E, npe * npe)[elements].reshape(-1)
+        E = elements.shape[0]
     if E * npe >= 2**31:
         raise ValueError("more than 2^31 element-node pairs")
     if npe > 32 or dm * dm * npe > 32 * _MAX_ROUNDS:

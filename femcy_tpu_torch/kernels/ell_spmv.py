@@ -4,7 +4,11 @@ Replaces the gather SpMV of ``femcy_tpu/solvers/cg.py`` (``ell_spmv``,
 :20-27) in the Jacobi-PCG of the general ELL layout: y = A x with
 ``A[r, colidx[r, w]] = values[r, w]``, read from (W, n) transposed
 operands -- the values made once per solve (``prep_values``), the column
-ids and row counts once per pattern (``spmv_plan``).
+ids and row counts once per pattern (``spmv_plan``).  The row-sharded
+solve of ``parallel/sharded.py`` (femcy_tpu/parallel/sharded.py:211-212)
+runs the same kernel on a shard's block of rows with the whole gathered x
+(``rows_plan``): the kernel reads x only through the column ids, so x may
+be longer than y.
 
 The kernel walks six rows per thread in f64 and one in f32, each summed
 in slot order with one multiply-add per slot (see the source).
@@ -38,20 +42,33 @@ class EllSpmvPlan:
     colidx_t: torch.Tensor
     #: (n,) int32 valid slots per row
     row_counts: torch.Tensor
+    #: the length of x: n for a whole operator, more for a block of its
+    #: rows (``rows_plan``)
+    n_cols: int
 
 
 def spmv_plan(pattern: ELLPattern, device) -> EllSpmvPlan:
     """The transposed column ids and the row counts of ``pattern``, on
     ``device`` (once per pattern)."""
-    if pattern.n_dof * pattern.width >= 2**31:
+    return rows_plan(pattern.colidx, pattern.row_counts, pattern.n_dof, device)
+
+
+def rows_plan(colidx, row_counts, n_cols: int, device) -> EllSpmvPlan:
+    """The plan of a block of ELL rows, (n, W) column ids into an x of
+    ``n_cols`` values and each row's count of valid slots: the local SpMV
+    of a row-sharded operator, y (n,) from the whole gathered x.  The
+    kernel is the same; only its x is longer than its y."""
+    n, width = colidx.shape
+    if n * width >= 2**31 or n_cols >= 2**31:
         raise ValueError("ELL SpMV operands past 2^31 slots are not supported")
-    colidx_t = np.ascontiguousarray(pattern.colidx.T, dtype=np.int32)
+    colidx_t = np.ascontiguousarray(np.asarray(colidx).T, dtype=np.int32)
     return EllSpmvPlan(
-        n=pattern.n_dof,
-        width=pattern.width,
+        n=n,
+        width=width,
         colidx_t=torch.as_tensor(colidx_t, device=device),
         row_counts=torch.as_tensor(
-            np.asarray(pattern.row_counts, dtype=np.int32), device=device),
+            np.asarray(row_counts, dtype=np.int32), device=device),
+        n_cols=n_cols,
     )
 
 
@@ -66,11 +83,12 @@ def prep_values(plan: EllSpmvPlan, values):
 
 
 def spmv(plan: EllSpmvPlan, values_t, x):
-    """y = A @ x on the transposed ELL operand."""
+    """y = A @ x on the transposed ELL operand: y has ``plan.n`` rows, x
+    ``plan.n_cols`` values."""
     W, n = plan.width, plan.n
-    if values_t.shape != (W, n) or x.shape != (n,):
+    if values_t.shape != (W, n) or x.shape != (plan.n_cols,):
         raise ValueError(
-            f"expected values_t ({W}, {n}) and x ({n},), got "
+            f"expected values_t ({W}, {n}) and x ({plan.n_cols},), got "
             f"{tuple(values_t.shape)} and {tuple(x.shape)}"
         )
     if values_t.dtype != x.dtype or x.dtype not in _ENTRY:
@@ -91,7 +109,7 @@ def spmv(plan: EllSpmvPlan, values_t, x):
         raise ValueError(f"unsupported device {x.device}")
 
     fn = _build.entry(_ENTRY[x.dtype], _ARGTYPES)
-    y = torch.empty_like(x)
+    y = x.new_empty(n)
     _build.launch(fn, x.device, "ell_spmv kernel launch", values_t.data_ptr(),
                   plan.colidx_t.data_ptr(), plan.row_counts.data_ptr(),
                   x.data_ptr(), y.data_ptr(), n)

@@ -9,16 +9,10 @@ equal on both owners, so every shard's arrays have the same shape
 (``StructuredShardPlan``, ``stack_rows``, ``unstack_rows``).
 
 One process drives every shard, as femcy_tpu's single controller drives
-its ``shard_map`` (the public API stays the single-process one):
-
-- shard d's tensors live on ``devices[d]``; the list may name one device
-  more than once (several shards on one card, as XLA's virtual host devices
-  put several on one CPU);
-- the halo planes move by copies between the shards' tensors, a peer copy
-  when two shards' devices differ (``_fetch_halos``, ``_halo_add``);
-- a psum is the sum of the shards' partial results in shard order, on the
-  first shard's device, so reruns match bit for bit; the CG stop test's
-  pmax is the maximum over shards, read once an iteration.
+its ``shard_map`` (the public API stays the single-process one; the rules
+are in ``parallel/shards.py``); the halo planes move by copies between the
+shards' tensors, a peer copy when two shards' devices differ
+(``_fetch_halos``, ``_halo_add``).
 
 The kernels: the local SpMV of the CG, of the smoother and of the residual
 is the DIA SpMV kernel over a halo window (P1's windowed entry point,
@@ -55,6 +49,13 @@ from femcy_tpu_torch.kernels.structured_force import force_scatter
 from femcy_tpu_torch.materials import Material
 from femcy_tpu_torch.mesh import FEMesh
 from femcy_tpu_torch.meshgen import box_tets
+from femcy_tpu_torch.parallel.shards import (
+    Blocks,
+    pmax,
+    psum,
+    shard_devices,
+    to,
+)
 from femcy_tpu_torch.solvers.dia import build_structured_dia_pattern
 from femcy_tpu_torch.solvers.multigrid import (
     StructuredMultigrid,
@@ -67,7 +68,6 @@ from femcy_tpu_torch.structured import (
     structured_dia_scatter,
     structured_element_nodes,
 )
-from femcy_tpu_torch.utils.device import resolve_device
 
 #: halo depth in node planes; pad_lo = 3*(sx+sy+1)+2 < 2*3*sx = 2 planes
 #: for every grid with ny >= nz (checked in the plan)
@@ -131,57 +131,6 @@ def unstack_rows(plan: StructuredShardPlan, blocks: np.ndarray) -> np.ndarray:
     return np.concatenate(own)
 
 
-class Blocks:
-    """One tensor per shard, each on its shard's device.  ``+``, ``-``
-    and scaling by a Python number act shard by shard: what
-    ``system.run_newton`` does to its dof and Newton step."""
-
-    __slots__ = ("parts",)
-
-    def __init__(self, parts):
-        self.parts = list(parts)
-
-    def __iter__(self):
-        return iter(self.parts)
-
-    def __len__(self):
-        return len(self.parts)
-
-    def __getitem__(self, d):
-        return self.parts[d]
-
-    def __add__(self, other: "Blocks") -> "Blocks":
-        return Blocks(a + b for a, b in zip(self.parts, other.parts))
-
-    def __sub__(self, other: "Blocks") -> "Blocks":
-        return Blocks(a - b for a, b in zip(self.parts, other.parts))
-
-    def __mul__(self, scale: float) -> "Blocks":
-        return Blocks(a * scale for a in self.parts)
-
-    __rmul__ = __mul__
-
-
-def _to(t: torch.Tensor, device: torch.device) -> torch.Tensor:
-    return t if t.device == device else t.to(device)
-
-
-def _psum(parts) -> torch.Tensor:
-    """The sum of the shards' 0-d partials, in shard order, on the first
-    shard's device."""
-    total = parts[0]
-    for p in parts[1:]:
-        total = total + _to(p, total.device)
-    return total
-
-
-def _pmax(parts) -> torch.Tensor:
-    total = parts[0]
-    for p in parts[1:]:
-        total = torch.maximum(total, _to(p, total.device))
-    return total
-
-
 def _fetch_halos(plan: StructuredShardPlan, xs) -> List[torch.Tensor]:
     """x_ext = [2 planes from the left | x_local | 2 planes from the right]
     for every shard.
@@ -221,9 +170,9 @@ def _halo_add(plan: StructuredShardPlan, vs) -> List[torch.Tensor]:
     lasts = [v[-ps:].clone() for v in vs]
     for d, v in enumerate(vs):
         if d < D - 1:
-            v[-ps:] += _to(firsts[d + 1], v.device)
+            v[-ps:] += to(firsts[d + 1], v.device)
         if d > 0:
-            v[:ps] += _to(lasts[d - 1], v.device)
+            v[:ps] += to(lasts[d - 1], v.device)
     return vs
 
 
@@ -334,10 +283,7 @@ class ShardedStructuredSolver:
                 f"{tangent!r}"
             )
         self._tangent = tangent
-        if devices is None:
-            devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
-            devices = devices or ["cuda"]  # no card: resolve_device raises
-        self.devices = [_indexed(resolve_device(d)) for d in devices]
+        self.devices = shard_devices(devices)
         self.dtype = dtype if dtype is not None else default_dtype()
         plan = build_structured_shard_plan(fe_mesh, len(self.devices))
         self.plan = plan
@@ -466,10 +412,10 @@ class ShardedStructuredSolver:
         own = self._own
 
         def pdot(a, b):
-            return _psum([torch.dot(o * x, y) for o, x, y in zip(own, a, b)])
+            return psum([torch.dot(o * x, y) for o, x, y in zip(own, a, b)])
 
         def rmax_of(rs):
-            return _pmax([(o * r).abs().max() for o, r in zip(own, rs)])
+            return pmax([(o * r).abs().max() for o, r in zip(own, rs)])
 
         rs = list(bs)
         xs = [torch.zeros_like(b) for b in bs]
@@ -483,12 +429,12 @@ class ShardedStructuredSolver:
             while k < max_iters and bool(rmax >= thresh):
                 Ad = self._apply_a(values_t, ds)
                 alpha = rmr / pdot(ds, Ad)
-                xs = [x + _to(alpha, x.device) * d for x, d in zip(xs, ds)]
-                rs = [r - _to(alpha, r.device) * a for r, a in zip(rs, Ad)]
+                xs = [x + to(alpha, x.device) * d for x, d in zip(xs, ds)]
+                rs = [r - to(alpha, r.device) * a for r, a in zip(rs, Ad)]
                 zs = apply_m(rs)
                 rmr_new = pdot(rs, zs)
                 beta = rmr_new / rmr
-                ds = [z + _to(beta, z.device) * d for z, d in zip(zs, ds)]
+                ds = [z + to(beta, z.device) * d for z, d in zip(zs, ds)]
                 rmr = rmr_new
                 k += 1
                 rmax = rmax_of(rs)
@@ -531,7 +477,7 @@ class ShardedStructuredSolver:
             last = len(coarse) - 1
             for d, c in enumerate(coarse):
                 n = half + 1 if d == last else half
-                full[d * half : d * half + n] += _to(c[:n], dev)
+                full[d * half : d * half + n] += to(c[:n], dev)
             rc = full.reshape(-1).masked_fill(fixed_c, 0.0)
             ec = inner.precondition(values_c, rc, spmv=spmv)
             corrections[dev] = ec.masked_fill(fixed_c, 0.0).reshape(
@@ -654,7 +600,7 @@ class ShardedStructuredSolver:
             # shared plane stays equal on both owners
             diag_s, ref_s, scale = stab_s
             for d in range(plan.n_devices):
-                dd = _to(scale, diag_s[d].device) * diag_s[d]
+                dd = to(scale, diag_s[d].device) * diag_s[d]
                 f_int[d] = f_int[d] + dd * (dofs[d] - ref_s[d])
                 values[d][:, plan.diag_idx] += dd
         fixed_ext = _fetch_halos(plan, fixed_s)
@@ -664,7 +610,7 @@ class ShardedStructuredSolver:
                 plan, values[d], f_int[d] - rhs_s[d], fixed_s[d], fixed_ext[d])
             residuals.append(res)
             sq.append((self._own[d] * res * res).sum())
-        rms = torch.sqrt(_psum(sq) / plan.n_dof)
+        rms = torch.sqrt(psum(sq) / plan.n_dof)
         return Blocks(dofs), Blocks(values), Blocks(residuals), rms
 
     def cg(self, values_s, b_s, fixed: np.ndarray, fixed_s):
@@ -675,13 +621,6 @@ class ShardedStructuredSolver:
         self._ensure_mg_operands(fixed)
         xs, iters, rmax = self._pcg_solve(list(values_s), list(b_s), fixed_s)
         return Blocks(xs), iters, rmax
-
-
-def _indexed(device: torch.device) -> torch.device:
-    """A CUDA device with its index (tensors report "cuda:0", not "cuda")."""
-    if device.type == "cuda" and device.index is None:
-        return torch.device("cuda", torch.cuda.current_device())
-    return device
 
 
 def _inv_diag(values, diag_idx: int):

@@ -60,7 +60,9 @@ three layouts:
   a within-increment snap through Newmark steps on the stabilization hook;
 - slab sharding (``sharding="slab"``, parallel/structured.py): the same
   host state machine drives the slab solver's assembly, evaluation and
-  CG over x-slabs of a box, on one or several devices of one process.
+  CG over x-slabs of a box, on one or several devices of one process;
+  banded sharding (``sharding="banded"``, parallel/banded.py) does the
+  same over RCM-ordered block-tridiagonal row shards of any mesh.
 
 Every tensor lives on the ``device`` given to ``FEMSystem`` (``"cuda"`` by
 default, ``"cpu"`` when asked for; CUDA without a card raises) in one float
@@ -763,11 +765,34 @@ class FEMSystem:
         #: host walls (seconds) of the last hierarchy build, by phase
         self._amg_host_seconds: dict = {}
 
-        #: the slab-sharded solver (config.sharding="slab",
-        #: parallel/structured.py): the same host state machine drives its
-        #: slab programs instead of the single-device steps; None otherwise
+        #: the sharded solver (config.sharding "slab", parallel/
+        #: structured.py, or "banded", parallel/banded.py): the same host
+        #: state machine drives its shards instead of the single-device
+        #: steps; None otherwise
         self._shard_sys = None
-        if config.sharding == "slab":
+        if config.sharding != "none":
+            cards = torch.cuda.device_count() if device.type == "cuda" else 0
+            n = config.sharding_devices or cards
+            if n < 1:
+                raise ValueError(
+                    f"sharding={config.sharding!r} on the CPU needs "
+                    "sharding_devices > 0")
+            shards = ([torch.device("cuda", i % cards) for i in range(n)]
+                      if cards else [device] * n)
+        if config.sharding == "banded":
+            # any mesh: RCM + block-tridiagonal row shards, either tangent
+            # (the consistent one evaluates per element shard); the ELL
+            # pattern built above is reused (a structured box builds one)
+            from femcy_tpu_torch.parallel.banded import BandedShardedSolver
+
+            self._shard_sys = BandedShardedSolver(
+                mesh, material, devices=shards, cg_eps=config.cg_eps,
+                cg_iters=config.cg_max_iters,
+                geometric_stiffness=config.geometric_stiffness,
+                pattern=self.pattern, tangent=config.tangent,
+                dtype=dtype,
+            )
+        elif config.sharding == "slab":
             if self._structured_plan is None:
                 raise ValueError(
                     "sharding='slab' needs a structured box_tets mesh "
@@ -778,13 +803,6 @@ class FEMSystem:
                 ShardedStructuredSolver,
             )
 
-            cards = torch.cuda.device_count() if device.type == "cuda" else 0
-            n = config.sharding_devices or cards
-            if n < 1:
-                raise ValueError(
-                    "sharding='slab' on the CPU needs sharding_devices > 0")
-            shards = ([torch.device("cuda", i % cards) for i in range(n)]
-                      if cards else [device] * n)
             self._shard_sys = ShardedStructuredSolver(
                 mesh, material, devices=shards, cg_eps=config.cg_eps,
                 cg_iters=config.cg_max_iters,
@@ -1505,6 +1523,10 @@ class FEMSystem:
         """
         cfg = self.config
         sh = self._shard_sys
+        if sh is not None and hasattr(sh, "new_increment"):
+            # the banded solver's preconditioner setup is made once per
+            # increment
+            sh.new_increment()
         if not self.geometric_nonlinear:
             if sh is not None:
                 with self.timer.section("sharded_linear"):
@@ -1583,11 +1605,12 @@ class FEMSystem:
         return converged, newton_loop, residual_val
 
     def _advance_inc_sharded(self, rhs, fixed, sval, on_newton=None):
-        """The Newton increment under sharding="slab": ``run_newton`` over
-        the slab solver's evaluation and CG, the working dof, tangent and
-        residual as slab blocks (femcy_tpu's sharded branch of
-        ``_advance_inc``).  The stabilization / Newmark hook's blocks are
-        stacked once per increment.  No refinement under sharding."""
+        """The Newton increment under sharding: ``run_newton`` over the
+        sharded solver's evaluation and CG, the working dof, tangent and
+        residual as its blocks (slabs, or the banded solver's permuted
+        block rows; femcy_tpu's sharded branch of ``_advance_inc``).  The
+        stabilization / Newmark hook's blocks are stacked once per
+        increment.  No refinement under sharding."""
         sh = self._shard_sys
         rhs_s = sh.stack(rhs)
         fixed_np = fixed.cpu().numpy()
@@ -1614,8 +1637,8 @@ class FEMSystem:
             with self.timer.section("linear_solve"):
                 du, iters, rmax = sh.cg(values, residual, fixed_np, fixed_s)
             b_max = torch.stack([r.abs().max().cpu() for r in residual])
-            return cg_done(self, self.mesh.n_dof, "slab CG", du, iters,
-                           rmax, b_max)
+            return cg_done(self, self.mesh.n_dof, f"{self.config.sharding} CG",
+                           du, iters, rmax, b_max)
 
         def finish(dof):
             self.dof = torch.as_tensor(sh.unstack(dof), dtype=self.dtype,
@@ -1759,8 +1782,13 @@ class FEMSystem:
         if self._shard_sys is not None and self.geometric_nonlinear:
             a = self._arrs
             coords = a["nodes"] + self.dof.reshape(-1, self.mesh.dm)
-            _, vol = assembly.gradients_and_volume_x(
-                structured_element_nodes(coords, self.mesh), a["dN"], a["w"])
+            if self._structured_plan is not None:
+                _, vol = assembly.gradients_and_volume_x(
+                    structured_element_nodes(coords, self.mesh), a["dN"],
+                    a["w"])
+            else:  # sharding="banded": the general connectivity gather
+                _, vol = assembly.gradients_and_volume(
+                    coords, a["elements"], a["dN"], a["w"])
         dens = assembly.gp_energy_density(self.deformation_gradient(), self.material)
         return float((dens * vol).sum())
 

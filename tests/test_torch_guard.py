@@ -40,6 +40,9 @@ def test_imports_and_solves_without_jax():
         from femcy_tpu_torch.solvers import amg, bell, cg, multigrid, riks
         from femcy_tpu_torch import assembly_host, topology
         from femcy_tpu_torch import beam, device_loop, mixed, multiblock
+        from femcy_tpu_torch.kernels import btd_scatter
+        from femcy_tpu_torch.parallel import banded, sharded, shards
+        from femcy_tpu_torch.parallel import structured
 
         mesh = T.meshgen.box_tets(3, 2, 2)
         bottom = np.nonzero(mesh.nodes[:, 2] < 1e-9)[0]
@@ -213,7 +216,9 @@ def test_package_sources_never_import_jax():
     pkg = pathlib.Path(femcy_tpu_torch.__file__).parent
     sources = set(pkg.rglob("*.py"))
     assert (pkg / "device_loop.py") in sources
-    assert (pkg / "parallel" / "structured.py") in sources
+    for name in ("structured.py", "sharded.py", "banded.py", "shards.py"):
+        assert (pkg / "parallel" / name) in sources
+    assert (pkg / "kernels" / "btd_scatter.py") in sources
     for path in pkg.rglob("*.py"):
         for line in path.read_text().splitlines():
             words = line.split()
@@ -234,7 +239,9 @@ def test_cuda_device_raises_without_a_card():
 
 @pytest.mark.parametrize("entry", ["FEMSystem", "StructuredMultigrid",
                                    "MultiBlockSystem", "solve_beam",
-                                   "amg_from", "dof_from"])
+                                   "amg_from", "dof_from",
+                                   "ShardedLinearSolver", "ShardedNewtonStep",
+                                   "BandedShardedSolver", "FEMSystem banded"])
 def test_default_device_is_the_card(monkeypatch, entry):
     """Every entry point defaults to CUDA: with no card that default raises
     as an explicit device="cuda" does, and device="cpu" still runs."""
@@ -280,6 +287,26 @@ def test_default_device_is_the_card(monkeypatch, entry):
 
         def build(**kw):
             return convert.dof_from(np.zeros(mesh.n_dof), **kw).device
+    elif entry in ("ShardedLinearSolver", "ShardedNewtonStep",
+                   "BandedShardedSolver"):
+        from femcy_tpu_torch import parallel
+        from femcy_tpu_torch.parallel.banded import BandedShardedSolver
+
+        cls = (BandedShardedSolver if entry == "BandedShardedSolver"
+               else getattr(parallel, entry))
+
+        def build(**kw):
+            # the shards' devices: one per card by default, or as given
+            devices = [kw["device"]] * 2 if kw else None
+            return cls(mesh, mat, devices=devices).devices[0]
+    elif entry == "FEMSystem banded":
+        from femcy_tpu_torch import SolverConfig
+
+        def build(**kw):
+            cfg = SolverConfig(sharding="banded", sharding_devices=2)
+            s = FEMSystem(mesh, mat, config=cfg, **kw)
+            assert {sh.device for sh in s._shard_sys.shards} == {s.device}
+            return s.device
     else:
         def build(**kw):
             beam = BeamModel(np.array([[0.0, 0, 0], [1, 0, 0]]),

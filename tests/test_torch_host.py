@@ -134,9 +134,12 @@ def test_solver_config_fields_and_defaults():
     ],
 )
 def test_solver_config_later_values_raise(kw):
-    jcfg.SolverConfig(**kw)  # valid in the reference
-    with pytest.raises(NotImplementedError, match="ROADMAP slice I.3"):
-        tcfg.SolverConfig(**kw)
+    """Every value listed in config._LATER raises NotImplementedError
+    naming its slice; since slice I.3 (banded sharding, the last one) the
+    list is empty and the once-later values build as in femcy_tpu."""
+    assert tcfg._LATER == ()
+    assert dataclasses.asdict(tcfg.SolverConfig(**kw)) == dataclasses.asdict(
+        jcfg.SolverConfig(**kw))
 
 
 @pytest.mark.parametrize(
@@ -145,11 +148,13 @@ def test_solver_config_later_values_raise(kw):
         {"sharding": "slab"},
         {"dynamic_rescue": True},
         {"sharding": "slab", "sharding_devices": 4, "dynamic_rescue": True},
+        {"sharding": "banded", "sharding_devices": 4, "dynamic_rescue": True,
+         "tangent": "consistent"},
     ],
 )
 def test_solver_config_rescue_and_slab_values_accepted(kw):
-    """The implicit-dynamics rescue and the slab sharding are ported:
-    these build in both packages."""
+    """The implicit-dynamics rescue and the slab and banded sharding are
+    ported: these build in both packages."""
     assert dataclasses.asdict(tcfg.SolverConfig(**kw)) == dataclasses.asdict(
         jcfg.SolverConfig(**kw))
 

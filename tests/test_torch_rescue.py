@@ -45,6 +45,9 @@ through both CLIs (tests/test_torch_cli.py) and on the card
   the other's).
 - A rescue that fails (``dynamic_max_steps=1``) aborts with femcy_tpu's
   message: the base, then the diagnosis, then the rescue's detail.
+- Under ``sharding="banded"`` (2 shards) the rescued run from the same
+  state has the single-device run's records and its apex uy within 1e-6
+  relative (~45 s here: thousands of sharded evaluations and CG solves).
 """
 
 import jax.numpy as jnp
@@ -313,3 +316,24 @@ def test_failed_rescue_message_matches_jax(jax_rescued):
     assert msg.index("WITHIN the increment") < msg.index(detail)
     assert msg.count("dynamic rescue") == 1
     np.testing.assert_array_equal(ts.dof.numpy(), state[3])
+
+
+def test_rescue_under_banded_sharding(port_rescued, jax_rescued):
+    """``dynamic_rescue`` composes with ``sharding="banded"`` (femcy_tpu's
+    tests/test_dynamic_rescue.py::test_dynamic_rescue_under_banded_sharding):
+    the Newmark inertia term rides the banded evaluation's stabilization
+    operands, and the port's banded run from femcy_tpu's pre-snap state
+    (2 shards, the CG cap of femcy_tpu's test) lands on the port's
+    single-device rescue: the apex's uy within 1e-6 relative, the same
+    increment records."""
+    inp = arch_inp()
+    system = port_system(inp, dynamic_rescue=True, sharding="banded",
+                         sharding_devices=2, cg_max_iters=4 * inp.nodes.size)
+    report = resumed(system, pre_snap(jax_rescued), convert.inp_from(inp))
+    single, single_report = port_rescued
+    assert report.success and system.time0 == 1.0
+    assert record_tuples(report) == record_tuples(single_report)
+    uy = system.dof.numpy().reshape(-1, 2)[:, 1]
+    uy_single = single.dof.numpy().reshape(-1, 2)[:, 1]
+    assert uy.min() < -2 * RISE
+    assert uy.min() == pytest.approx(uy_single.min(), rel=1e-6)
