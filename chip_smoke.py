@@ -5,7 +5,16 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-Phases (any failure raises, and the script exits non-zero):
+Phases (any failure raises, and the script exits non-zero).  Phases 1-10
+(with 10b), 22, 36 and 37 run first and alone: they time the kernels.
+Then three lanes run at once on the one card: this process runs 11-13,
+18, 21, 24-30, 33-35 and 39; a second process of this script
+(``--lane cli``) runs the CLI phases 14, 14b, 15, 23, 20 and 16,
+then 32's CLI and 38's banded arch rescue; a third (``--lane
+nonlinear``) runs 31, 32's two blocks, 17, 19, 38's banded Newton and
+22b.  Each extra lane's lines are printed when this process's lane has
+ended; then 40.  The walls of the phases that ran in lanes include the
+other lanes' share of the card and the host.
 
 1. card: print ``nvidia-smi --query-gpu=name,power.limit``; exit non-zero
    when torch sees no CUDA device.
@@ -321,20 +330,24 @@ Phases (any failure raises, and the script exits non-zero):
    nothing.
 31. rescue, single block: femcy_tpu's snap-through arch (its
    tests/test_dynamic_rescue.py fixture) at 512 x 8 CPE4 (9,234 dofs),
-   the consistent tangent, f64: the static control aborts "WITHIN the
-   increment"; with ``dynamic_rescue`` it snaps through (success, time0 ==
-   1, the apex below -2 rise) with the rescue's (t_resc, Newmark steps)
-   against ``EXPECTED_RESCUE``, M4 and M1 once per evaluation and once
-   for the rescue's stiffness probe (the host direct solve, no other
-   kernel) and the rescue's warnings; a static
-   resume moves dof by <= 1e-9.  Prints the Newmark steps, h/h0 at the
+   the consistent tangent, f64: with ``dynamic_rescue`` it snaps through
+   (success, time0 == 1, the apex below -2 rise) with the rescue's
+   (t_resc, Newmark steps) against ``EXPECTED_RESCUE``, M4 and M1 once
+   per evaluation and once for the rescue's stiffness probe (the host
+   direct solve, no other kernel) and the rescue's warnings; the static
+   control, resumed without the rescue at that run's last attempt before
+   the rescue (its last converged state and the dt of the attempt that
+   failed there), aborts "WITHIN the increment" at the same time; a
+   static resume moves dof by <= 1e-9.  Prints the Newmark steps, h/h0 at the
    end, the evaluations and the consistent tangent's ms an evaluation.
-32. rescue, two blocks and the CLI: the same arch split at midspan into
-   two ElementBlocks through ``MultiBlockSystem.solve_nonlinear``
-   (success, min uy within 1e-6 relative of phase 31's, M4 and M1 once per
-   block and evaluation); ``cli.main`` with ``--dynamic-rescue`` on the
-   arch at the fixture's 64 x 2 as an .inp (exit 0, the rescue's two
-   warning lines).
+32. rescue, the CLI and two blocks: ``cli.main`` with
+   ``--dynamic-rescue`` on the arch at the fixture's 64 x 2 as an .inp
+   (exit 0, the rescue's two warning lines; its solve's records recorded:
+   the rescue's (t_resc, Newmark steps) against
+   ``EXPECTED_RESCUE_FIXTURE``); phase 31's arch in two ElementBlocks (the
+   lower and upper half of its thickness) through
+   ``MultiBlockSystem.solve_nonlinear`` (success, min uy within 1e-6
+   relative of phase 31's, M4 and M1 once per block and evaluation).
 33. slab, linear: the NX=56 box of phase 5 with ``sharding="slab"`` in 4
    slabs of 14 cell planes on the one card, with the multigrid and with
    the Jacobi CG at cg_eps 1e-10: dof within 1e-7 (inf-norm, relative) of
@@ -376,11 +389,24 @@ Phases (any failure raises, and the script exits non-zero):
    ``FEMSystem(sharding="banded", sharding_devices=4)`` and the
    single-device ELL FEMSystem, both at cg_eps 1e-10: the same history
    (pinned), dof 1e-8, energy 1e-10, M8 twice a shard an evaluation; then
-   the arch of phase 31 at its fixture's 64 x 2 with the rescue, once on
-   the single device (its rescue record pinned) and in 2 banded shards
-   resumed from that run's last state before the rescue: the same
-   records, min uy within 1e-6.
-39. print the launch counts and the CG iterations of every path, each
+   the arch of phase 31 at its fixture's 64 x 2 with the rescue in 2
+   banded shards, resumed at the last attempt before the rescue of phase
+   32's CLI run (the single-device reference): the same records from
+   there, min uy within 1e-6.
+39. slice J, femcy_tpu's remaining public functions, at full width in
+   float64: on the NX=56 box ``structured_assemble`` against
+   ``structured_dia_scatter`` of all element stiffnesses (1e-13, both
+   through P2) and the analytic operator (1e-12), P2 launched once a call
+   and nothing else, its peak memory; ``analytic_dia_values_device`` on
+   the card against the host elimination of the analytic operator with a
+   seeded 20% ``fixed`` mask (1e-12 of max); on the ELL slice's operator
+   (kept from phase 8) the public ``solvers.pcg_solve`` with no ``spmv``:
+   312 iterations (pinned as "slice J, pcg_solve"), M2 once an iteration
+   and nothing else, ||A x - b||_inf <= cg_eps * ||b||_inf with the plain
+   gather; the public ``solvers.ell_spmv`` on that x against the plain
+   gather (1e-12), each timed in turns; ``assembly.internal_force`` on
+   seeded stresses of that mesh against M4 (1e-12).  Each check's wall.
+40. print the launch counts and the CG iterations of every path, each
    beside the count that the deterministic kernels have always given, and
    fail on another count (a kernel changed its rounding), and the Newton
    histories beside the pinned ones; then the kernel table as one JSON
@@ -437,7 +463,7 @@ EXPECTED_CG_ITERS = {"multigrid box": 6, "jacobi box": 257, "ELL slice": 312,
                      "mixed box": 1125, "dense CG, ELL": 438,
                      "dense CG, box": 250, "slab, multigrid": 18,
                      "slab, jacobi": 1075, "sharded ELL": 314,
-                     "banded cell": 48}
+                     "banded cell": 48, "slice J, pcg_solve": 312}
 #: the Newton cases' time schedule: the top face turned by time * pi about
 #: the box axis, 3.6 degrees in five increments.  Each increment's first
 #: Newton iterate puts its whole turn into the top element layer, 1/56
@@ -530,6 +556,15 @@ BANDED_CELL, BANDED_SWEEP_ITERS = (400, 20), 48
 #: its block size and row blocks a shard at SHARDS shards
 BANDED_CELL_BLOCKS = (1328, 100)
 BANDED_NL = (100, 8)
+
+
+#: the argument that runs an extra lane (``run_lane``) in place of
+#: ``main``, and the prefix of its result line
+LANE_ARG = "--lane"
+LANE_RESULT = "lane result: "
+#: the script's start; the extra lanes are stopped 1,150 s after it
+T_START = time.perf_counter()
+LANE_DEADLINE_S = 1150.0
 
 
 def check(ok: bool, what: str) -> None:
@@ -1244,7 +1279,7 @@ def general_kernel_checks(torch, card, results):
     from femcy_tpu_torch.kernels import ell_spmv as k_ell
     from femcy_tpu_torch.materials import LinearIsotropic
     from femcy_tpu_torch.meshgen import unstructured_box_tets
-    from femcy_tpu_torch.solvers.cg import ell_spmv
+    from femcy_tpu_torch.solvers.cg import ell_spmv_plain
     from femcy_tpu_torch.topology import build_pattern
 
     mat = LinearIsotropic(1000.0, 0.3)
@@ -1309,7 +1344,7 @@ def general_kernel_checks(torch, card, results):
             x = dev(x_np)
             vt = k_ell.prep_values(splan, vals)
             y_k = k_ell.spmv(splan, vt, x)
-            y_p = ell_spmv(vals, colidx, x)
+            y_p = ell_spmv_plain(vals, colidx, x)
             torch.cuda.synchronize()
             abs2 = float((y_k - y_p).abs().max())
             rel2 = abs2 / float(y_p.abs().max())
@@ -1353,7 +1388,7 @@ def general_kernel_checks(torch, card, results):
                 check(float((lib2(x) - y_p).abs().max()) <= tol * float(
                     y_p.abs().max()), "M2's CSR yardstick disagrees")
                 ms2, pms2, lms2 = in_turns(
-                    lambda: ell_spmv(vals, colidx, x),
+                    lambda: ell_spmv_plain(vals, colidx, x),
                     lambda: k_ell.spmv(splan, vt, x), 20, 50,
                     lambda: lib2(x))
                 del lib2
@@ -1378,11 +1413,12 @@ def general_kernel_checks(torch, card, results):
     return out
 
 
-def plan_on_cpu(torch, plan):
+def plan_to(torch, plan, device):
     """A copy of a kernel's plan (M1's and M4's, M6's) with every tensor on
-    the CPU."""
+    ``device``."""
     return dataclasses.replace(plan, **{
-        f.name: getattr(plan, f.name).cpu() for f in dataclasses.fields(plan)
+        f.name: getattr(plan, f.name).to(device)
+        for f in dataclasses.fields(plan)
         if isinstance(getattr(plan, f.name), torch.Tensor)})
 
 
@@ -1393,7 +1429,7 @@ def m4_against_cpu_plain(torch, f_e, plan, what: str):
     from femcy_tpu_torch.kernels import internal_force as k_force
 
     f_k = k_force.scatter_force(f_e, plan)
-    ref = k_force.scatter_force_plain(f_e.cpu(), plan_on_cpu(torch, plan))
+    ref = k_force.scatter_force_plain(f_e.cpu(), plan_to(torch, plan, "cpu"))
     got = f_k.cpu()
     abs_err = float((got - ref).abs().max())
     check(torch.equal(got, ref), f"M4 {what}: not bit-equal to the CPU plain "
@@ -1463,7 +1499,7 @@ def m1_against_cpu_plain(torch, Ke, plan, what: str):
     from femcy_tpu_torch.kernels import ell_scatter as k_scat
 
     v_k = k_scat.scatter(Ke, plan)
-    ref = k_scat.scatter_plain(Ke.cpu(), plan_on_cpu(torch, plan))
+    ref = k_scat.scatter_plain(Ke.cpu(), plan_to(torch, plan, "cpu"))
     got = v_k.cpu()
     abs_err = float((got - ref).abs().max())
     check(torch.equal(got, ref), f"M1 {what}: not bit-equal to the CPU plain "
@@ -1677,7 +1713,7 @@ def general_slice_run(torch, card, mesh, layout: str, host_K, keep=None):
     CG iterations; with a ``keep`` dict, its "dof" is the solution."""
     from femcy_tpu_torch import FEMSystem, LinearIsotropic
     from femcy_tpu_torch.kernels import ell_scatter as k_scat
-    from femcy_tpu_torch.solvers.cg import ell_spmv
+    from femcy_tpu_torch.solvers.cg import ell_spmv_plain
     from femcy_tpu_torch.solvers.dia import dia_spmv
 
     mat = LinearIsotropic(1000.0, 0.3)
@@ -1762,13 +1798,13 @@ def general_slice_run(torch, card, mesh, layout: str, host_K, keep=None):
         colidx = system._arrs["colidx"]
 
         def plain_spmv(v, x):
-            return ell_spmv(v, colidx, x)
+            return ell_spmv_plain(v, colidx, x)
     check(err <= TOL["float64"], f"assembled operator vs host f64: {err:.3e}")
     del values, v_np
     res, bmax, ux_err = solution_checks(torch, system, mesh, plain_spmv)
     # the layout's SpMV kernel (P1 on DIA, M2 on ELL) on this slice's own
     # eliminated operator, against its plain version
-    values_bc, _, _ = system._linear_system(
+    values_bc, rhs_bc, _ = system._linear_system(
         torch.zeros_like(system.dof), *system._last_dirichlet)
     prep, apply_fn = system._spmv
     x = torch.as_tensor(np.random.default_rng(5).standard_normal(mesh.n_dof),
@@ -1778,7 +1814,18 @@ def general_slice_run(torch, card, mesh, layout: str, host_K, keep=None):
                      / y_p.abs().max())
     check(err_spmv <= TOL["float64"],
           f"{spmv_kernel} vs plain on the slice's operator: {err_spmv:.3e}")
-    del values_bc, x, y_p
+    if keep is not None and layout == "ell":
+        # phase 39's operator and mesh data, held on the host meanwhile
+        a = system._arrs
+        keep["operator"] = dict(
+            values=values_bc.cpu(), rhs=rhs_bc.cpu(),
+            colidx=a["colidx"].cpu(), diag_slot=a["diag_slot"].cpu(),
+            elements=a["elements"].cpu(), dsdx=a["dsdX0"].cpu(),
+            vol=a["vol0"].cpu(),
+            plan=plan_to(torch, system._scatter_plan, "cpu"),
+            cg_eps=system.config.cg_eps,
+            cg_max_iters=system.config.cg_max_iters)
+    del values_bc, rhs_bc, x, y_p
     print(f"{layout} slice checks: operator rel err {err:.3e} vs the f64 host "
           f"operator{extra}, {spmv_kernel} kernel vs plain on the eliminated "
           f"operator {err_spmv:.3e} (tol {TOL['float64']:.0e}), M1 rerun "
@@ -2424,7 +2471,7 @@ def amg_slice_run(torch, card, mesh, jacobi_dof, results):
     launch counts and CG iterations."""
     from femcy_tpu_torch import FEMSystem, LinearIsotropic, SolverConfig
     from femcy_tpu_torch.kernels import bell_spmv as k_bell
-    from femcy_tpu_torch.solvers.cg import ell_spmv
+    from femcy_tpu_torch.solvers.cg import ell_spmv_plain
 
     t_phase = time.perf_counter()
     inp = boundary_model(mesh, 0.01)
@@ -2489,7 +2536,7 @@ def amg_slice_run(torch, card, mesh, jacobi_dof, results):
     del strain, stress, nodal
     colidx = system._arrs["colidx"]
     res, bmax, ux_err = solution_checks(
-        torch, system, mesh, lambda v, x: ell_spmv(v, colidx, x))
+        torch, system, mesh, lambda v, x: ell_spmv_plain(v, colidx, x))
     dof = system.dof.cpu().numpy()
     jac = float(np.abs(dof - jacobi_dof).max() / np.abs(jacobi_dof).max())
     print(f"AMG slice checks: ||Ax-b||_inf/||b||_inf {res / bmax:.3e} (cg_eps "
@@ -2742,10 +2789,10 @@ def multiblock_kernel_checks(torch, system, label: str):
 
 def m2_union_check(torch, system, values_bc, label: str):
     """M2 on the union pattern's eliminated operator, in float32 and
-    float64, against the plain ``ell_spmv`` run on the CPU on the same
+    float64, against the plain ``ell_spmv_plain`` run on the CPU on the same
     values, and bit-identical on a rerun."""
     from femcy_tpu_torch.kernels import ell_spmv as k_ell
-    from femcy_tpu_torch.solvers.cg import ell_spmv
+    from femcy_tpu_torch.solvers.cg import ell_spmv_plain
 
     splan = k_ell.spmv_plan(system.pattern, DEVICE)
     colidx = system._arrs["colidx"].cpu()
@@ -2761,15 +2808,15 @@ def m2_union_check(torch, system, values_bc, label: str):
         torch.cuda.synchronize()
         check(torch.equal(y, y2), f"M2 {label} {name}: rerun not "
               "bit-identical")
-        y_p = ell_spmv(vals.cpu(), colidx, x.cpu())
+        y_p = ell_spmv_plain(vals.cpu(), colidx, x.cpu())
         rel = float((y.cpu() - y_p).abs().max() / y_p.abs().max())
         check(rel <= TOL[name], f"M2 {label} {name}: {rel:.3e} vs plain")
         rels.append(f"{name} rel {rel:.2e}")
         del vals, vt
     print(f"M2 kernel checks, {label} (union ELL width "
           f"{system.pattern.width}): " + "; ".join(rels)
-          + " vs the plain ell_spmv on the CPU (tol 1e-5 in float32, 1e-12 "
-          "in float64), bit-identical reruns", flush=True)
+          + " vs the plain ell_spmv_plain on the CPU (tol 1e-5 in float32, "
+          "1e-12 in float64), bit-identical reruns", flush=True)
 
 
 def multiblock_solve(torch, card, system, label: str, bcs):
@@ -2782,7 +2829,7 @@ def multiblock_solve(torch, card, system, label: str, bcs):
     eliminated operator (M2 on the union pattern, or M3 on every operand
     of the hierarchy), and a warm solve with the same iterations.  Returns
     (launches, CG iterations)."""
-    from femcy_tpu_torch.solvers.cg import ell_spmv
+    from femcy_tpu_torch.solvers.cg import ell_spmv_plain
 
     rhs, fixed, sval = bcs
     amg = system.config.preconditioner == "amg"
@@ -2811,8 +2858,8 @@ def multiblock_solve(torch, card, system, label: str, bcs):
     values_bc, b = system._linear_system(
         torch.as_tensor(rhs, device=DEVICE), fixed_t,
         torch.as_tensor(sval, device=DEVICE))
-    res = float((ell_spmv(values_bc, system._arrs["colidx"], system.dof)
-                 - b).abs().max())
+    res = float((ell_spmv_plain(values_bc, system._arrs["colidx"],
+                                system.dof) - b).abs().max())
     bmax = float(b.abs().max())
     check(res <= system.config.cg_eps * bmax,
           f"{label}: ||Ax-b||_inf {res:.3e} > cg_eps*||b||_inf")
@@ -3438,7 +3485,7 @@ def m6_checks(torch, system, label: str):
 
     plan = system._plan
     t = time.perf_counter()
-    targets = km6.contribution_targets(plan_on_cpu(torch, plan))
+    targets = km6.contribution_targets(plan_to(torch, plan, "cpu"))
     targets_s = time.perf_counter() - t
     kes = system._element_matrices()
     values = None
@@ -3557,7 +3604,7 @@ def mixed_run(torch, card, results):
     of the expected shapes, a warm solve with the same iterations.  Returns
     (launches, CG iterations)."""
     from femcy_tpu_torch import MixedSystem, SolverConfig
-    from femcy_tpu_torch.solvers.cg import ell_spmv
+    from femcy_tpu_torch.solvers.cg import ell_spmv_plain
 
     t_phase = time.perf_counter()
     mesh, model = mixed_model(FULL[0])
@@ -3596,7 +3643,7 @@ def mixed_run(torch, card, results):
         if name not in ("mixed_scatter", "ell_spmv"):
             check(n == 0, f"mixed: {name} launched {n} times")
     values_bc, b = system._linear_system(*system._model_arrays(model))
-    r = float((ell_spmv(values_bc, system._arrs["colidx"], system.dof)
+    r = float((ell_spmv_plain(values_bc, system._arrs["colidx"], system.dof)
                - b).abs().max())
     bmax = float(b.abs().max())
     check(r <= system.config.cg_eps * bmax,
@@ -3744,7 +3791,7 @@ def mixed_route_run(torch, card):
                        for k in kes_np]
                 out = km6.scatter(kes, plan)
                 ref = km6.scatter_plain([k.cpu() for k in kes],
-                                        plan_on_cpu(torch, plan))
+                                        plan_to(torch, plan, "cpu"))
                 check(torch.equal(out.cpu(), ref), f"M6 {label} {route} "
                       f"{dtype}: not bit-equal to its CPU plain version")
                 check(torch.equal(out, km6.scatter(kes, plan)),
@@ -4496,6 +4543,39 @@ class _Warnings:
         self._log.removeHandler(self._handler)
 
 
+class _Increments:
+    """While installed, wraps ``FEMSystem.solve`` so that every call also
+    records the (record, dof) pair of each converged increment, beside any
+    ``on_increment`` of the caller; keeps the last call's system and
+    report.  The arithmetic is the caller's own."""
+
+    def __enter__(self):
+        from femcy_tpu_torch.system import FEMSystem
+
+        self.seen, self.system, self.report = [], None, None
+        self._inner = inner = FEMSystem.solve
+
+        def solve(system, inp, *args, on_increment=None, **kwargs):
+            def tee(s_, r):
+                self.seen.append((r, s_.dof.cpu().numpy()))
+                if on_increment is not None:
+                    on_increment(s_, r)
+
+            self.seen.clear()
+            self.system = system
+            self.report = inner(system, inp, *args, on_increment=tee,
+                                **kwargs)
+            return self.report
+
+        FEMSystem.solve = solve
+        return self
+
+    def __exit__(self, *exc):
+        from femcy_tpu_torch.system import FEMSystem
+
+        FEMSystem.solve = self._inner
+
+
 def rescue_newmark_h(system):
     """Wraps ``system._advance_inc`` to record the Newmark step size of
     every rescue step (h = 1 / sqrt(beta * scale) from the inertia hook's
@@ -4514,16 +4594,39 @@ def rescue_newmark_h(system):
     return hs
 
 
+def last_attempt(torch, system, recs, seen):
+    """Sets ``system`` to resume a run at the last attempt of its cutback
+    cascade before the rescue: the dof of the run's last converged record
+    before the rescue's (from ``seen``, the (record, dof) pairs of its
+    ``on_increment``), that record's time, and the dt of the attempt that
+    took dt below min_inc (the dt stored with the record before the
+    cascade's last failure).  The attempt is the same computation as in
+    the run, and after it the same rescue.  Returns (index of the rescue's
+    record, index of that converged record)."""
+    k = next(j for j, r in enumerate(recs)
+             if r.converged and r.residual == 0.0)
+    i = [j for j in range(k) if recs[j].converged][-1]
+    check(not recs[k - 1].converged and k - 2 >= i,
+          f"rescue records before the rescue: {recs[i:k]}")
+    system.dof = torch.as_tensor(next(d for r, d in seen if r is recs[i]),
+                                 device=DEVICE)
+    system.time0 = system.time1 = recs[i].time
+    system.dt = recs[k - 2].dt
+    return k, i
+
+
 def rescue_run(torch, card):
     """Phase 31: the snap-through arch at ARCH_FINE through FEMSystem on
-    the card, f64, the consistent tangent: the static control aborts
-    "WITHIN the increment"; with ``dynamic_rescue`` the analysis snaps
-    through (success, time0 == 1, apex below -2 rise) with the rescue's
-    (t_resc, Newmark steps) against EXPECTED_RESCUE, M4 and M1 once per
-    evaluation (and the rescue's stiffness probe) and no other kernel; a
-    static resume of the rescued state moves dof by <= 1e-9.  Prints the Newmark steps, h/h0 at the end, the
-    evaluations, the consistent tangent's ms an evaluation and the
-    launches.  Returns (launches, min uy)."""
+    the card, f64, the consistent tangent: with ``dynamic_rescue`` the
+    analysis snaps through (success, time0 == 1, apex below -2 rise) with
+    the rescue's (t_resc, Newmark steps) against EXPECTED_RESCUE, M4 and M1
+    once per evaluation (and the rescue's stiffness probe) and no other
+    kernel; the static control, resumed without the rescue at the last
+    attempt of that run's cutback cascade (``last_attempt``), aborts
+    "WITHIN the increment" at the same time; a static resume of the
+    rescued state moves dof by <= 1e-9.  Prints the Newmark steps, h/h0
+    at the end, the evaluations, the consistent tangent's ms an evaluation
+    and the launches.  Returns (launches, min uy)."""
     from femcy_tpu_torch import FEMSystem, SolverConfig, material_from_inp
     from femcy_tpu_torch import assembly
     from femcy_tpu_torch.mesh import FEMesh
@@ -4539,25 +4642,14 @@ def rescue_run(torch, card):
                          SolverConfig(tangent="consistent", **cfg),
                          device=DEVICE)
 
-    static = system()
-    t = time.perf_counter()
-    rep0 = static.solve(model)
-    static_s = time.perf_counter() - t
-    check(not rep0.success and "WITHIN the increment" in rep0.message,
-          f"arch static control: {rep0.success}, {rep0.message}")
-    print(f"rescue, static control on {card}: {mesh.n_elements} CPE4, "
-          f"{mesh.n_dof} dofs; aborted at t {static.time0:.6f} after "
-          f"{len(rep0.increments)} records in {static_s:.2f} s: "
-          f"{rep0.message}", flush=True)
-    t_fail = static.time0
-    del static
-
     rescued = system(dynamic_rescue=True)
     hs = rescue_newmark_h(rescued)
+    seen = []  # (record, dof at its end) of every converged increment
     zero_launches()
     with _Warnings() as warns:
         t = time.perf_counter()
-        rep = rescued.solve(model)
+        rep = rescued.solve(model, on_increment=lambda s_, r: seen.append(
+            (r, s_.dof.cpu().numpy())))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     launches = read_launches()
@@ -4567,6 +4659,24 @@ def rescue_run(torch, card):
           f"arch rescue: {rep.success}, time0 {rescued.time0}, "
           f"{rep.message}")
     check(uy.min() < -2 * ARCH_RISE, f"arch rescue: min uy {uy.min()}")
+
+    static = system()
+    k, i = last_attempt(torch, static, rep.increments, seen)
+    t_fail = static.time0
+    t = time.perf_counter()
+    rep0 = static.solve(model, resume=True)
+    static_s = time.perf_counter() - t
+    check(not rep0.success and "WITHIN the increment" in rep0.message
+          and static.time0 == t_fail,
+          f"arch static control: {rep0.success} at t {static.time0}, "
+          f"{rep0.message}")
+    print(f"rescue, static control on {card}: {mesh.n_elements} CPE4, "
+          f"{mesh.n_dof} dofs; resumed at t {t_fail:.6f} (record {i}) at "
+          f"the dt of the rescue run's last attempt there "
+          f"({rep.increments[k - 2].dt:.4g}), aborted after {len(rep0.increments)} records in {static_s:.2f} "
+          f"s: {rep0.message}", flush=True)
+    del static
+
     rec = [r for r in rep.increments if r.converged and r.residual == 0.0]
     check(len(rec) == 1 and rec[0].time > t_fail,
           f"arch rescue: rescue records {rec}")
@@ -4614,15 +4724,56 @@ def rescue_run(torch, card):
     return launches, float(uy.min())
 
 
-def rescue_blocks_run(torch, card, uy_min):
-    """Phase 32: phase 31's arch split at midspan into two ElementBlocks
-    through ``MultiBlockSystem.solve_nonlinear`` with the rescue (success,
-    min uy within 1e-6 relative of phase 31's, M4 and M1 once per block
-    and evaluation); then ``cli.main`` with --dynamic-rescue on the arch
-    at femcy_tpu's fixture size as an .inp (exit 0, the rescue's warning
-    lines).  Returns the multi-block run's launches."""
+def rescue_cli_run(torch, card):
+    """Phase 32, first half: ``cli.main`` with --dynamic-rescue on phase
+    31's arch at femcy_tpu's fixture size ARCH_FIXTURE as an .inp (exit
+    0, the rescue's two warning lines), its FEMSystem.solve recorded by
+    ``_Increments``: success, one rescue record, against
+    EXPECTED_RESCUE_FIXTURE.  This run is the single-device reference of
+    the two-block and banded rescues (the CLI's model is ``arch_model``'s
+    to the bit: the same records and dof on the CPU).  Returns (records,
+    (record, dof) pairs, min uy)."""
     import tempfile
 
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "arch.inp"
+        path.write_text(arch_inp_text(arch_model(*ARCH_FIXTURE)))
+        with _Warnings() as warns, _Increments() as run:
+            rc, _, _, _, cli_s = run_cli([str(path), "--tangent",
+                                          "consistent", "--dynamic-rescue"])
+    resc = [w for w in warns if "rescue" in w]
+    check(rc == 0 and len(resc) == 2
+          and "attempting implicit-dynamics traversal" in resc[0]
+          and resc[1].endswith("resuming statics"),
+          f"CLI --dynamic-rescue: rc {rc}, warnings {warns}")
+    recs = run.report.increments
+    rec = [r for r in recs if r.converged and r.residual == 0.0]
+    check(run.report.success and len(rec) == 1,
+          f"arch rescue at {ARCH_FIXTURE}: {run.report.success}, records "
+          f"{rec}")
+    got = (round(rec[0].time, 9), rec[0].newton_iters)
+    check(got == EXPECTED_RESCUE_FIXTURE, f"arch rescue at {ARCH_FIXTURE}: "
+          f"(t_resc, Newmark steps) {got}, {EXPECTED_RESCUE_FIXTURE} "
+          "expected")
+    uy = float(run.system.dof.cpu().numpy().reshape(-1, 2)[:, 1].min())
+    print(f"rescue, CLI on {card}: rc {rc} in {cli_s:.2f} s, "
+          f"{len(recs)} records, the rescue's record {recs.index(rec[0])} "
+          f"at t {rec[0].time:.9f} ({rec[0].newton_iters} Newmark steps), "
+          f"min uy {uy:.9f}; warnings {resc}; phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    seen = list(run.seen)
+    del run
+    return recs, seen, uy
+
+
+def rescue_blocks_run(torch, card, uy_ref):
+    """Phase 32, second half: phase 31's arch at ARCH_FINE in two
+    ElementBlocks (its elements in order, halved: the lower and the upper
+    half of the thickness) through ``MultiBlockSystem.solve_nonlinear``
+    with the rescue: success, min uy within 1e-6 relative of phase 31's
+    (``uy_ref``), M4 and M1 once per block and evaluation.  Returns the
+    launches."""
     from femcy_tpu_torch import (
         ElementBlock,
         MultiBlockSystem,
@@ -4631,7 +4782,6 @@ def rescue_blocks_run(torch, card, uy_min):
     )
     from femcy_tpu_torch.elements import get_element
 
-    t_phase = time.perf_counter()
     model = arch_model(*ARCH_FINE)
     mat = material_from_inp(model.material_type, model.material_params,
                             model.element_type)
@@ -4659,10 +4809,10 @@ def rescue_blocks_run(torch, card, uy_min):
     wall = time.perf_counter() - t
     launches = read_launches()
     uy = system.dof.cpu().numpy().reshape(-1, 2)[:, 1]
-    rel = abs(uy.min() - uy_min) / abs(uy_min)
+    rel = abs(uy.min() - uy_ref) / abs(uy_ref)
     check(rep.success and rel <= 1e-6,
           f"two-block rescue: {rep.success}, min uy {uy.min()} vs "
-          f"{uy_min} ({rel:.3e})")
+          f"{uy_ref} ({rel:.3e})")
     n = evals["n"]
     check(launches["internal_force"] == 2 * n
           and launches["ell_scatter"] == 2 * n,
@@ -4670,24 +4820,10 @@ def rescue_blocks_run(torch, card, uy_min):
           f"{launches['ell_scatter']} for {n} evaluations of 2 blocks")
     steps = [r.newton_iters for r in rep.increments
              if r.converged and r.residual == 0.0]
-    print(f"rescue, two blocks on {card}: {wall:.2f} s, {n} evaluations, "
-          f"Newmark steps {steps}, min uy {uy.min():.9f} (rel {rel:.3e} to "
-          f"one block); launches {launches}", flush=True)
+    print(f"rescue, two blocks on {card}: {wall:.2f} s, "
+          f"{n} evaluations, Newmark steps {steps}, min uy {uy.min():.9f} "
+          f"(rel {rel:.3e} to one block); launches {launches}", flush=True)
     del system
-    with tempfile.TemporaryDirectory() as tmp:
-        path = pathlib.Path(tmp) / "arch.inp"
-        path.write_text(arch_inp_text(arch_model(*ARCH_FIXTURE)))
-        with _Warnings() as warns:
-            rc, _, _, _, cli_s = run_cli([str(path), "--tangent",
-                                          "consistent", "--dynamic-rescue"])
-    resc = [w for w in warns if "rescue" in w]
-    check(rc == 0 and len(resc) == 2
-          and "attempting implicit-dynamics traversal" in resc[0]
-          and resc[1].endswith("resuming statics"),
-          f"CLI --dynamic-rescue: rc {rc}, warnings {warns}")
-    print(f"rescue, CLI on {card}: rc {rc} in {cli_s:.2f} s; warnings "
-          f"{resc}; phase wall {time.perf_counter() - t_phase:.1f} s",
-          flush=True)
     return launches
 
 
@@ -4879,7 +5015,7 @@ def sharded_ell_run(torch, card, host_K):
     from femcy_tpu_torch import FEMSystem, LinearIsotropic, SolverConfig
     from femcy_tpu_torch.meshgen import unstructured_box_tets
     from femcy_tpu_torch.parallel import ShardedLinearSolver, ShardedNewtonStep
-    from femcy_tpu_torch.solvers.cg import ell_spmv
+    from femcy_tpu_torch.solvers.cg import ell_spmv_plain
     from femcy_tpu_torch.topology import build_pattern
 
     t_phase = time.perf_counter()
@@ -4961,7 +5097,7 @@ def sharded_ell_run(torch, card, host_K):
     colidx = single._arrs["colidx"]
 
     def step_residual(step):
-        r = ell_spmv(values, colidx, step) - residual
+        r = ell_spmv_plain(values, colidx, step) - residual
         return float(r.abs().max() / residual.abs().max())
 
     res_sh = step_residual(dof_p - dev(d_sh))
@@ -5080,7 +5216,7 @@ def m8_checks(torch, card, sh, results):
     rng = np.random.default_rng(11)
     for kind, plan in (("stiffness", s.plan_k), ("force", s.plan_f)):
         vals_np = rng.standard_normal(plan.n_entries)
-        cpu_plan = plan_on_cpu(torch, plan)
+        cpu_plan = plan_to(torch, plan, "cpu")
         for dtype in (torch.float32, torch.float64):
             name = str(dtype).split(".")[1]
             vals = torch.as_tensor(vals_np, dtype=dtype, device=DEVICE)
@@ -5239,16 +5375,9 @@ def banded_newton_run(torch, card):
     the secant and the consistent tangent: the histories equal (pinned in
     EXPECTED_NEWTON), dof within 1e-8 and elastic energy within 1e-10
     relative, M8 2 * SHARDS times an evaluation and no other kernel in
-    the banded runs; then phase 31's arch at its test fixture's size
-    ARCH_FIXTURE with ``dynamic_rescue``, the consistent tangent: once on
-    the single device from t = 0 (success, the rescue's record against
-    EXPECTED_RESCUE_FIXTURE), then in RESCUE_SHARDS banded shards resumed
-    from that run's last converged state before the rescue: the same
-    records from there on, success and min uy within 1e-6 relative.
-    Returns ({path: launches}, {path: history})."""
+    the banded runs (the arch rescue is ``banded_rescue_run``).  Returns
+    ({path: launches}, {path: history})."""
     from femcy_tpu_torch import FEMSystem, LinearIsotropic, SolverConfig
-    from femcy_tpu_torch import material_from_inp
-    from femcy_tpu_torch.mesh import FEMesh
     from femcy_tpu_torch.meshgen import cantilever_tets
 
     t_phase = time.perf_counter()
@@ -5300,47 +5429,34 @@ def banded_newton_run(torch, card):
             if name != "btd_scatter":
                 check(n == 0, f"{path}: {name} launched {n} times")
         by_path[path], histories[path] = b["launches"], b["history"]
+    print(f"banded Newton: phase wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return by_path, histories
 
-    # the arch rescue at the fixture size: the single device from t = 0,
-    # then banded from its last converged state before the rescue
+
+def banded_rescue_run(torch, card, recs, seen, uy_s):
+    """Phase 38, its second half: the arch at ARCH_FIXTURE with
+    ``dynamic_rescue``, the consistent tangent, in RESCUE_SHARDS banded
+    shards resumed at the last attempt before the rescue of the
+    single-device run (the CLI's of phase 32: its records ``recs``, its
+    (record, dof) pairs ``seen``, its min uy ``uy_s``; ``last_attempt``):
+    the same records from there on, success and min uy within 1e-6
+    relative, M8 launched.  Returns {path: launches}."""
+    from femcy_tpu_torch import FEMSystem, SolverConfig, material_from_inp
+    from femcy_tpu_torch.mesh import FEMesh
+
+    t_phase = time.perf_counter()
     arch = arch_model(*ARCH_FIXTURE)
     amat = material_from_inp(arch.material_type, arch.material_params,
                              arch.element_type)
     amesh = FEMesh(arch.nodes, arch.elements, arch.element)
-    single = FEMSystem(amesh, amat, True, SolverConfig(
-        tangent="consistent", dynamic_rescue=True), device=DEVICE)
-    seen = []  # (record, dof at its end) of every increment, in order
-    with _Warnings():
-        t = time.perf_counter()
-        rep_s = single.solve(arch, on_increment=lambda s_, r: seen.append(
-            (r, s_.dof.cpu().numpy())))
-        single_s = time.perf_counter() - t
-    uy_s = float(single.dof.cpu().numpy().reshape(-1, 2)[:, 1].min())
-    recs = rep_s.increments
-    rec = [r for r in recs if r.converged and r.residual == 0.0]
-    check(rep_s.success and len(rec) == 1,
-          f"arch rescue at {ARCH_FIXTURE}: {rep_s.success}, records {rec}")
-    got = (round(rec[0].time, 9), rec[0].newton_iters)
-    check(got == EXPECTED_RESCUE_FIXTURE, f"arch rescue at {ARCH_FIXTURE}: "
-          f"(t_resc, Newmark steps) {got}, {EXPECTED_RESCUE_FIXTURE} "
-          "expected")
-    k = recs.index(rec[0])
-    i = [j for j in range(k) if recs[j].converged][-1]
-    t_i, dt_i = recs[i].time, recs[i].dt
     history = [(r.newton_iters, r.converged) for r in recs]
-    del single
-    print(f"rescue, arch {ARCH_FIXTURE} ({amesh.n_dof} dofs) on {card}: "
-          f"{single_s:.2f} s from t = 0, {len(recs)} records, the rescue's "
-          f"record {k} at t {rec[0].time:.9f} ({rec[0].newton_iters} "
-          f"Newmark steps), min uy {uy_s:.9f}", flush=True)
     banded = FEMSystem(amesh, amat, True, SolverConfig(
         tangent="consistent", dynamic_rescue=True, sharding="banded",
         sharding_devices=RESCUE_SHARDS, cg_max_iters=4 * arch.nodes.size),
         device=DEVICE)
-    banded.dof = torch.as_tensor(
-        next(d for r, d in seen if r is recs[i]), device=DEVICE)
-    banded.time0 = banded.time1 = t_i
-    banded.dt = dt_i
+    k, i = last_attempt(torch, banded, recs, seen)
+    t_i, dt_i = banded.time0, banded.dt
     zero_launches()
     t = time.perf_counter()
     rep_b = banded.solve(arch, resume=True)
@@ -5348,12 +5464,13 @@ def banded_newton_run(torch, card):
     banded_s = time.perf_counter() - t
     rescue_launches = read_launches()
     uy_b = banded.dof.cpu().numpy().reshape(-1, 2)[:, 1].min()
-    tail = history[i + 1:]
+    tail = history[k - 1:]
     got = [(r.newton_iters, r.converged) for r in rep_b.increments]
     rel_uy = abs(uy_b - uy_s) / abs(uy_s)
     print(f"banded rescue, arch {ARCH_FIXTURE} ({amesh.n_dof} dofs), "
-          f"{RESCUE_SHARDS} shards on {card}: resumed at t {t_i:.6f} from "
-          f"the single-device run, {banded_s:.2f} s, "
+          f"{RESCUE_SHARDS} shards on {card}: resumed at t {t_i:.6f} "
+          f"(record {i}) at the dt of the single-device run's last attempt "
+          f"there ({dt_i:.4g}), {banded_s:.2f} s, "
           f"{len(rep_b.increments)} records (single device "
           f"{len(tail)} from there), min uy {uy_b:.9f} (single device "
           f"{uy_s:.9f}, rel {rel_uy:.3e}); launches {rescue_launches}; "
@@ -5364,10 +5481,323 @@ def banded_newton_run(torch, card):
     check(uy_b < -2 * ARCH_RISE and rel_uy <= 1e-6,
           f"banded rescue: min uy {uy_b}, single {uy_s}")
     check(rescue_launches["btd_scatter"] > 0, "banded rescue: no M8")
-    by_path["banded rescue"] = rescue_launches
     del banded
     torch.cuda.empty_cache()
-    return by_path, histories
+    return {"banded rescue": rescue_launches}
+
+
+def slice_j_run(torch, card, ell):
+    """Phase 39: femcy_tpu's remaining public functions on the card.  On
+    the NX=56 box in float64: (a) ``structured_assemble`` against
+    ``structured_dia_scatter(element_stiffness(...))`` within 1e-13 of
+    max|values| (both reach P2), (b) against the f64
+    ``analytic_structured_dia_values`` within 1e-12, (c) P2 launched once
+    by the call and no other kernel; (d) ``analytic_dia_values_device``
+    against the host ``dia_dirichlet_linear_numpy`` of the analytic values
+    with a seeded 20% ``fixed`` mask, within 1e-12 of max|host|.  On the
+    ELL slice's operator and mesh (``ell``, kept by phase 8): (e)
+    ``solvers.pcg_solve`` with no ``spmv`` takes the ELL slice's pinned
+    iterations with M2 launched once an iteration and no other kernel,
+    and its x meets ||A x - b||_inf <= cg_eps * ||b||_inf with the plain
+    gather; ``solvers.ell_spmv`` on that x against ``ell_spmv_plain``
+    within 1e-12 relative, both timed in turns;
+    (f) ``assembly.internal_force`` on seeded stresses against M4
+    (``scatter_force``) within 1e-12 of max|M4|.  Prints each check's
+    wall and ``structured_assemble``'s peak memory above its inputs.
+    Returns ({path: launches}, {path: iterations})."""
+    from femcy_tpu_torch import assembly, solvers
+    from femcy_tpu_torch.kernels import internal_force as k_force
+    from femcy_tpu_torch.materials import LinearIsotropic
+    from femcy_tpu_torch.meshgen import box_tets
+    from femcy_tpu_torch.solvers.cg import ell_spmv_plain
+    from femcy_tpu_torch.solvers.dia import build_structured_dia_pattern
+    from femcy_tpu_torch.structured import (
+        analytic_cell_tensor,
+        analytic_dia_values_device,
+        analytic_structured_dia_values,
+        build_structured_plan,
+        dia_dirichlet_linear_numpy,
+        structured_assemble,
+        structured_dia_scatter,
+    )
+
+    t_phase = time.perf_counter()
+    walls = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t
+        return out
+
+    def dev(a, dtype=torch.float64):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=DEVICE)
+
+    mesh = box_tets(*FULL)
+    dia = build_structured_dia_pattern(mesh)
+    plan = build_structured_plan(mesh, dia)
+    C = LinearIsotropic(1000.0, 0.3).C
+    dsdx, vol = assembly.gradients_and_volume(
+        dev(mesh.nodes), dev(mesh.elements, torch.int64),
+        dev(mesh.element.dshape_at_gp), dev(mesh.element.gauss_weights))
+    host = timed("host analytic", lambda: analytic_structured_dia_values(
+        mesh, C, dia))
+    walls["setup"] = time.perf_counter() - t_phase
+
+    zero_launches()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    values = timed("(a) structured_assemble",
+                   lambda: structured_assemble(dsdx, vol, dev(C), plan))
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = read_launches()
+    check(launches["structured_accumulate"] == 1,
+          f"structured_assemble launched P2 "
+          f"{launches['structured_accumulate']} times, 1 expected")
+    check(all(n == 0 for k, n in launches.items()
+              if k != "structured_accumulate"),
+          f"structured_assemble launched another kernel: {launches}")
+    by_path = {"slice J, structured_assemble": launches}
+    ref = timed("(a) Newton route", lambda: structured_dia_scatter(
+        assembly.element_stiffness(dsdx, vol, dev(C)), plan))
+    scale = float(ref.abs().max())
+    err_a = float((values - ref).abs().max()) / scale
+    check(err_a <= 1e-13, f"structured_assemble vs structured_dia_scatter: "
+          f"{err_a:.3e} > 1e-13")
+    del ref
+    err_b = float(np.abs(values.cpu().numpy() - host).max()
+                  / np.abs(host).max())
+    check(err_b <= TOL["float64"], f"structured_assemble vs analytic: "
+          f"{err_b:.3e} > {TOL['float64']:.0e}")
+    before = read_launches()["structured_accumulate"]
+    structured_assemble(dsdx, vol, dev(C), plan)
+    check(read_launches()["structured_accumulate"] == before + 1,
+          "a second structured_assemble call did not launch P2 once")
+    del values, dsdx, vol
+
+    fixed = np.random.default_rng(3).random(dia.n_dof) < 0.2
+    want = timed("(d) host elimination", lambda: dia_dirichlet_linear_numpy(
+        host, dia.offsets, dia.diag_idx, fixed))
+    c = analytic_cell_tensor(mesh, C, dia)
+    got = timed("(d) analytic_dia_values_device",
+                lambda: analytic_dia_values_device(
+                    c, FULL, dia.offsets, dia.diag_idx,
+                    torch.as_tensor(fixed, device=DEVICE)))
+    diff_d = float(np.abs(got.cpu().numpy() - want).max())
+    check(got.dtype == torch.float64 and got.device.type == "cuda",
+          f"analytic_dia_values_device gave {got.dtype} on {got.device}")
+    check(diff_d <= TOL["float64"] * float(np.abs(want).max()),
+          f"analytic_dia_values_device vs host: {diff_d:.3e}")
+    del got, want, host
+
+    values = ell["values"].to(DEVICE)
+    colidx, diag_slot = ell["colidx"].to(DEVICE), ell["diag_slot"].to(DEVICE)
+    rhs = ell["rhs"].to(DEVICE)
+    zero_launches()
+    x, cg_iters, _ = timed("(e) solvers.pcg_solve", lambda: solvers.pcg_solve(
+        values, colidx, diag_slot, rhs, eps=ell["cg_eps"],
+        max_iters=ell["cg_max_iters"]))
+    launches = read_launches()
+    by_path["slice J, pcg_solve"] = launches
+    check(launches["ell_spmv"] == cg_iters,
+          f"solvers.pcg_solve launched M2 {launches['ell_spmv']} times for "
+          f"{cg_iters} CG iterations")
+    check(all(n == 0 for k, n in launches.items() if k != "ell_spmv"),
+          f"solvers.pcg_solve launched another kernel: {launches}")
+    res_e = float((ell_spmv_plain(values, colidx, x) - rhs).abs().max())
+    bmax_e = float(rhs.abs().max())
+    check(res_e <= ell["cg_eps"] * bmax_e,
+          f"solvers.pcg_solve: ||Ax-b||_inf {res_e:.3e} > cg_eps*||b||_inf "
+          f"{ell['cg_eps'] * bmax_e:.3e}")
+    # the public SpMV, whose CUDA branch builds M2's plan and transposes
+    # the operand at every call, against the plain gather it replaces
+    y = solvers.ell_spmv(values, colidx, x)
+    y_plain = ell_spmv_plain(values, colidx, x)
+    err_e = float((y - y_plain).abs().max() / y_plain.abs().max())
+    check(err_e <= TOL["float64"], f"solvers.ell_spmv vs ell_spmv_plain: "
+          f"{err_e:.3e} > {TOL['float64']:.0e}")
+    public_ms, gather_ms, _ = in_turns(
+        lambda: ell_spmv_plain(values, colidx, x),
+        lambda: solvers.ell_spmv(values, colidx, x), 5, 5)
+    del values, colidx, diag_slot, rhs, x, y, y_plain
+
+    plan4 = plan_to(torch, ell["plan"], DEVICE)
+    dsdx, vol = ell["dsdx"].to(DEVICE), ell["vol"].to(DEVICE)
+    s = torch.as_tensor(np.random.default_rng(16).standard_normal(
+        (dsdx.shape[0], dsdx.shape[1], 3, 3)), device=DEVICE)
+    sigma = s + s.transpose(-1, -2)
+    targets = (ell["elements"].to(DEVICE)[:, :, None] * 3
+               + torch.arange(3, device=DEVICE)).reshape(-1)
+    f_int = timed("(f) assembly.internal_force",
+                  lambda: assembly.internal_force(dsdx, sigma, vol, targets,
+                                                  plan4.n_dof))
+    m4 = k_force.scatter_force(
+        assembly.element_internal_force(dsdx, sigma, vol), plan4)
+    err_f = float((f_int - m4).abs().max() / m4.abs().max())
+    check(err_f <= TOL["float64"], f"assembly.internal_force vs M4: "
+          f"{err_f:.3e} > {TOL['float64']:.0e}")
+    del plan4, dsdx, vol, s, sigma, targets, f_int, m4
+    torch.cuda.empty_cache()
+    print(f"slice J on {card}: (a) structured_assemble at {FULL} float64 vs "
+          f"structured_dia_scatter rel {err_a:.3e} (tol 1e-13), peak memory "
+          f"above its inputs {peak / 1e9:.3f} GB; (b) vs the f64 analytic "
+          f"operator rel {err_b:.3e}; (c) P2 once a call, "
+          f"{by_path['slice J, structured_assemble']}; (d) "
+          f"analytic_dia_values_device vs the host elimination max abs "
+          f"{diff_d:.3e}; (e) solvers.pcg_solve without spmv: {cg_iters} CG "
+          f"iterations, M2 {by_path['slice J, pcg_solve']['ell_spmv']}, "
+          f"||Ax-b||_inf {res_e:.3e} (cg_eps*||b||_inf "
+          f"{ell['cg_eps'] * bmax_e:.3e}); solvers.ell_spmv vs the plain "
+          f"gather rel {err_e:.3e}, {public_ms:.4f} ms a call (plan and "
+          f"transpose included) vs the gather's {gather_ms:.4f} ms; (f) "
+          f"assembly.internal_force vs M4 rel {err_f:.3e}; walls " + ", ".join(
+              f"{k} {v:.3f} s" for k, v in walls.items())
+          + f"; phase wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return by_path, {"slice J, pcg_solve": cg_iters}
+
+
+def _die_with_parent() -> None:
+    """In a lane's process before it runs: Linux sends it SIGKILL when the
+    script's process ends, also when that one is killed."""
+    import ctypes
+    import signal
+
+    ctypes.CDLL(None).prctl(1, signal.SIGKILL)  # PR_SET_PDEATHSIG
+
+
+class Lane:
+    """An extra lane: this script run again with ``LANE_ARG name``, in a
+    process of its own on the same card, its output in a temporary file.
+    ``join`` waits for it, prints its lines and returns its launches, CG
+    iterations and histories by path; ``stop`` ends it if it still runs."""
+
+    def __init__(self, name: str):
+        import tempfile
+
+        self.name, self.t = name, time.perf_counter()
+        self.log = tempfile.TemporaryFile()
+        self.joined = False
+        self.proc = subprocess.Popen(
+            [sys.executable, str(pathlib.Path(__file__).resolve()),
+             LANE_ARG, name], stdout=self.log, stderr=subprocess.STDOUT,
+            preexec_fn=_die_with_parent)
+
+    def lines(self) -> list:
+        self.log.seek(0)
+        return self.log.read().decode(errors="replace").splitlines()
+
+    def join(self) -> dict:
+        try:
+            rc = self.proc.wait(timeout=max(
+                1.0, LANE_DEADLINE_S - (time.perf_counter() - T_START)))
+        except subprocess.TimeoutExpired:
+            rc = None
+        self.joined = True
+        print(f"lane {self.name!r} ({LANES[self.name].__doc__.split(':')[0]}"
+              f"): exit code {rc}, wall {time.perf_counter() - self.t:.1f} "
+              "s; its lines follow", flush=True)
+        result = None
+        for line in self.lines():
+            if line.startswith(LANE_RESULT):
+                result = json.loads(line[len(LANE_RESULT):])
+            else:
+                print(line, flush=True)
+        check(rc == 0 and result is not None,
+              f"lane {self.name!r}: exit code {rc}")
+        result["histories"] = {path: [tuple(r) for r in h] for path, h
+                               in result["histories"].items()}
+        return result
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+        if not self.joined:
+            print(f"lane {self.name!r}, stopped: its last lines\n"
+                  + "\n".join(self.lines()[-40:]), file=sys.stderr)
+        self.log.close()
+
+
+def cli_lane(torch, card, out):
+    """Phases 14, 14b, 15, 23, 20, 16, 32's CLI and 38's arch rescue: the
+    CLI runs and the banded rescue resumed from the CLI's."""
+    from femcy_tpu_torch.meshgen import box_hexes, unstructured_box_tets
+
+    by_path, iters = out["by_path"], out["iters"]
+    by_path["CLI, ELL"], iters["CLI, ELL"] = cli_linear_run(
+        torch, card, "CLI, ELL", unstructured_box_tets(UNSTRUCT[-1]), "C3D4",
+        "ell_spmv", trace=False)
+    by_path["CLI, AMG"], iters["CLI, AMG"] = cli_amg_run(torch, card)
+    by_path["CLI, general DIA"], iters["CLI, general DIA"] = cli_linear_run(
+        torch, card, "CLI, general DIA", box_hexes(*HEX), "C3D8", "dia_spmv",
+        trace=True)
+    by_path["CLI, mixed"] = cli_mixed_run(torch, card)
+    for path, (counts, n) in cli_multiblock_run(torch, card).items():
+        by_path[path] = counts
+        if path in EXPECTED_CG_ITERS:
+            iters[path] = n
+    for label, extra in (("CLI nonlinear", []),
+                         ("CLI nonlinear, stabilized",
+                          ["--stabilize", repr(STABILIZE)])):
+        by_path[label], _ = cli_nonlinear_run(torch, card, label, extra)
+    recs, seen, uy = rescue_cli_run(torch, card)
+    by_path.update(banded_rescue_run(torch, card, recs, seen, uy))
+
+
+def nonlinear_lane(torch, card, out):
+    """Phases 31 and 32's two blocks, 17, 19, 38's banded Newton and 22b:
+    the rescues, the stabilized Newton cases, the hex + wedge box, the
+    banded Newton cantilever and M6's routes."""
+    from femcy_tpu_torch.meshgen import box_tets, unstructured_box_tets
+
+    by_path, iters, histories = out["by_path"], out["iters"], out["histories"]
+    by_path["rescue"], uy_min = rescue_run(torch, card)
+    by_path["rescue, two blocks"] = rescue_blocks_run(torch, card, uy_min)
+    by_path["ELL Newton, stabilized"], histories["ELL Newton, stabilized"] = (
+        newton_run(torch, card, "ELL Newton, stabilized",
+                   unstructured_box_tets(UNSTRUCT[-1]),
+                   dict(stabilize_factor=STABILIZE), "internal_force",
+                   "ell_scatter", warm=False))
+    by_path["box secant, stabilized"], histories["box secant, stabilized"] = (
+        newton_run(torch, card, "box secant, stabilized", box_tets(16, 16, 16),
+                   dict(geometric_stiffness=False, preconditioner="multigrid",
+                        linear_solver="cg", stabilize_factor=STABILIZE),
+                   "structured_force", "structured_fused", warm=False))
+    (by_path["hex+wedge"], iters["hex+wedge"]), (
+        by_path["hex+wedge Newton"], histories["hex+wedge Newton"]) = (
+        hex_wedge_run(torch, card))
+    paths, hist = banded_newton_run(torch, card)
+    by_path.update(paths)
+    histories.update(hist)
+    mixed_route_run(torch, card)
+
+
+#: the extra lanes by name: each runs beside the main lane once every
+#: kernel is timed, in a process of its own on the same card
+LANES = {"cli": cli_lane, "nonlinear": nonlinear_lane}
+
+
+def run_lane(name: str) -> int:
+    """An extra lane's process: its phases, each line printed, then
+    LANE_RESULT and their launches, CG iterations and histories by path
+    as one JSON object."""
+    import torch
+
+    from femcy_tpu_torch.kernels import _build
+
+    card = card_line()
+    check(torch.cuda.is_available(), f"lane {name!r}: no CUDA device")
+    _build.load_library()
+    out = {"by_path": {}, "iters": {}, "histories": {}}
+    t = time.perf_counter()
+    LANES[name](torch, card, out)
+    print(f"lane {name!r}: phases' wall {time.perf_counter() - t:.1f} s",
+          flush=True)
+    print(LANE_RESULT + json.dumps(out), flush=True)
+    return 0
 
 
 def main() -> int:
@@ -5435,127 +5865,102 @@ def main() -> int:
         torch, card, unstructured_box_tets(UNSTRUCT[-1]), jacobi["dof"],
         results)
     launches["bell_spmv"] = by_path["AMG slice"]["bell_spmv"]
+    ell_operator = jacobi.pop("operator")
     del jacobi
     amg_2d_checks(torch)
 
-    histories = {}
-    box_single = {}
-    by_path["box Newton"], histories["box Newton"] = newton_run(
-        torch, card, "box Newton", box_tets(*FULL),
-        dict(preconditioner="multigrid", linear_solver="cg"),
-        "structured_force", "structured_accumulate", warm=True,
-        keep=box_single)
-    by_path["ELL Newton"], histories["ELL Newton"] = newton_run(
-        torch, card, "ELL Newton", unstructured_box_tets(UNSTRUCT[-1]), {},
-        "internal_force", "ell_scatter", warm=True)
-    small = unstructured_box_tets(INP_NX)
-    by_path["consistent tangent"], histories["consistent tangent"] = (
-        newton_run(torch, card, "consistent tangent", small,
-                   dict(tangent="consistent"), "internal_force",
-                   "ell_scatter", warm=False))
-    by_path["Jacobian reuse"], histories["Jacobian reuse"] = newton_run(
-        torch, card, "Jacobian reuse", small,
-        dict(newton_jacobian_reuse="increment"), "internal_force",
-        "ell_scatter", warm=False)
-    t = time.perf_counter()
-    by_path["Newton, AMG"], histories["Newton, AMG"] = newton_run(
-        torch, card, "Newton, AMG", small,
-        dict(preconditioner="amg", linear_solver="cg"), "internal_force",
-        "ell_scatter", warm=False)
-    print(f"Newton, AMG: phase wall {time.perf_counter() - t:.1f} s",
-          flush=True)
-    by_path["box secant"], histories["box secant"] = newton_run(
-        torch, card, "box secant", box_tets(16, 16, 16),
-        dict(geometric_stiffness=False, preconditioner="multigrid",
-             linear_solver="cg"), "structured_force", "structured_fused",
-        warm=False)
-
-    by_path["CLI, ELL"], iters["CLI, ELL"] = cli_linear_run(
-        torch, card, "CLI, ELL", unstructured_box_tets(UNSTRUCT[-1]), "C3D4",
-        "ell_spmv", trace=False)
-    by_path["CLI, AMG"], iters["CLI, AMG"] = cli_amg_run(torch, card)
-    by_path["CLI, general DIA"], iters["CLI, general DIA"] = cli_linear_run(
-        torch, card, "CLI, general DIA", box_hexes(*HEX), "C3D8", "dia_spmv",
-        trace=True)
-    for label, extra in (("CLI nonlinear", []),
-                         ("CLI nonlinear, stabilized",
-                          ["--stabilize", repr(STABILIZE)])):
-        by_path[label], _ = cli_nonlinear_run(torch, card, label, extra)
-    by_path["ELL Newton, stabilized"], histories["ELL Newton, stabilized"] = (
-        newton_run(torch, card, "ELL Newton, stabilized",
-                   unstructured_box_tets(UNSTRUCT[-1]),
-                   dict(stabilize_factor=STABILIZE), "internal_force",
-                   "ell_scatter", warm=False))
-    by_path["box secant, stabilized"], histories["box secant, stabilized"] = (
-        newton_run(torch, card, "box secant, stabilized", box_tets(16, 16, 16),
-                   dict(geometric_stiffness=False, preconditioner="multigrid",
-                        linear_solver="cg", stabilize_factor=STABILIZE),
-                   "structured_force", "structured_fused", warm=False))
-    t = time.perf_counter()
-    for path, (counts, n) in two_material_run(torch, card).items():
-        by_path[path], iters[path] = counts, n
-    (by_path["hex+wedge"], iters["hex+wedge"]), (
-        by_path["hex+wedge Newton"], histories["hex+wedge Newton"]) = (
-        hex_wedge_run(torch, card))
-    for path, (counts, n) in cli_multiblock_run(torch, card).items():
-        by_path[path] = counts
-        if path in EXPECTED_CG_ITERS:
-            iters[path] = n
-    by_path["beam lattice"] = beam_run(torch, card)
-    print(f"multi-block and beam phases: wall {time.perf_counter() - t:.1f} s",
-          flush=True)
+    # the last phases that time kernels, before the other lanes start
     t = time.perf_counter()
     by_path["mixed box"], iters["mixed box"] = mixed_run(torch, card, results)
-    mixed_route_run(torch, card)
-    by_path["CLI, mixed"] = cli_mixed_run(torch, card)
-    by_path["Riks"], riks_history = riks_run(torch, card)
-    print(f"mixed and Riks phases: wall {time.perf_counter() - t:.1f} s",
-          flush=True)
-    t = time.perf_counter()
-    by_path["refinement, box"], _ = refine_box_run(torch, card,
-                                                   mg_keep.pop("dof"))
-    refine_incompressible_run(torch, card)
-    by_path["Newton refinement"], histories["Newton refinement"] = (
-        newton_refine_run(torch, card))
-    for path, (counts, n) in dense_cg_run(torch, card).items():
-        by_path[path], iters[path] = counts, n
-    for label, mesh, force, tangent in (
-            ("ELL Newton, fused", unstructured_box_tets(UNSTRUCT[-1]),
-             "internal_force", "ell_scatter"),
-            ("box fused", box_tets(16, 16, 16), "structured_force",
-             "structured_accumulate")):
-        by_path[label], histories[label] = newton_run(
-            torch, card, label, mesh, dict(fused_newton=True), force,
-            tangent, warm=False)
-    by_path["device loop"], histories["device loop"] = device_loop_run(
-        torch, card)
-    print(f"refinement, dense CG, fused and device-loop phases: wall "
-          f"{time.perf_counter() - t:.1f} s", flush=True)
-    t = time.perf_counter()
-    by_path["rescue"], uy_min = rescue_run(torch, card)
-    by_path["rescue, two blocks"] = rescue_blocks_run(torch, card, uy_min)
-    slab_paths, slab_iters = slab_linear_run(torch, card)
-    by_path.update(slab_paths)
-    iters.update(slab_iters)
-    by_path["slab Newton"], histories["slab Newton"] = slab_newton_run(
-        torch, card, box_single)
-    del box_single
-    print(f"rescue and slab phases: wall {time.perf_counter() - t:.1f} s",
-          flush=True)
-    t = time.perf_counter()
-    paths, its = sharded_ell_run(torch, card, ell_host_K)
-    by_path.update(paths)
-    iters.update(its)
-    del ell_host_K
     m7_checks(torch, card, results)
     paths, its = banded_cell_run(torch, card, results)
     by_path.update(paths)
     iters.update(its)
-    paths, hist = banded_newton_run(torch, card)
-    by_path.update(paths)
-    histories.update(hist)
-    print(f"sharded and banded phases: wall {time.perf_counter() - t:.1f} s",
-          flush=True)
+    print(f"mixed, M7 and banded-cell phases: wall "
+          f"{time.perf_counter() - t:.1f} s; alone until here "
+          f"{time.perf_counter() - T_START:.1f} s", flush=True)
+
+    histories = {}
+    box_single = {}
+    lanes = [Lane(name) for name in LANES]
+    try:
+        t_lanes = time.perf_counter()
+        by_path["box Newton"], histories["box Newton"] = newton_run(
+            torch, card, "box Newton", box_tets(*FULL),
+            dict(preconditioner="multigrid", linear_solver="cg"),
+            "structured_force", "structured_accumulate", warm=True,
+            keep=box_single)
+        by_path["ELL Newton"], histories["ELL Newton"] = newton_run(
+            torch, card, "ELL Newton", unstructured_box_tets(UNSTRUCT[-1]),
+            {}, "internal_force", "ell_scatter", warm=True)
+        small = unstructured_box_tets(INP_NX)
+        for label, config in (
+                ("consistent tangent", dict(tangent="consistent")),
+                ("Jacobian reuse", dict(newton_jacobian_reuse="increment")),
+                ("Newton, AMG", dict(preconditioner="amg",
+                                     linear_solver="cg"))):
+            by_path[label], histories[label] = newton_run(
+                torch, card, label, small, config, "internal_force",
+                "ell_scatter", warm=False)
+        by_path["box secant"], histories["box secant"] = newton_run(
+            torch, card, "box secant", box_tets(16, 16, 16),
+            dict(geometric_stiffness=False, preconditioner="multigrid",
+                 linear_solver="cg"), "structured_force", "structured_fused",
+            warm=False)
+        t = time.perf_counter()
+        for path, (counts, n) in two_material_run(torch, card).items():
+            by_path[path], iters[path] = counts, n
+        by_path["beam lattice"] = beam_run(torch, card)
+        by_path["Riks"], riks_history = riks_run(torch, card)
+        print(f"two-material, beam and Riks phases: wall "
+              f"{time.perf_counter() - t:.1f} s", flush=True)
+        t = time.perf_counter()
+        by_path["refinement, box"], _ = refine_box_run(torch, card,
+                                                       mg_keep.pop("dof"))
+        refine_incompressible_run(torch, card)
+        by_path["Newton refinement"], histories["Newton refinement"] = (
+            newton_refine_run(torch, card))
+        for path, (counts, n) in dense_cg_run(torch, card).items():
+            by_path[path], iters[path] = counts, n
+        for label, mesh, force, tangent in (
+                ("ELL Newton, fused", unstructured_box_tets(UNSTRUCT[-1]),
+                 "internal_force", "ell_scatter"),
+                ("box fused", box_tets(16, 16, 16), "structured_force",
+                 "structured_accumulate")):
+            by_path[label], histories[label] = newton_run(
+                torch, card, label, mesh, dict(fused_newton=True), force,
+                tangent, warm=False)
+        by_path["device loop"], histories["device loop"] = device_loop_run(
+            torch, card)
+        print(f"refinement, dense CG, fused and device-loop phases: wall "
+              f"{time.perf_counter() - t:.1f} s", flush=True)
+        t = time.perf_counter()
+        slab_paths, slab_iters = slab_linear_run(torch, card)
+        by_path.update(slab_paths)
+        iters.update(slab_iters)
+        by_path["slab Newton"], histories["slab Newton"] = slab_newton_run(
+            torch, card, box_single)
+        del box_single
+        paths, its = sharded_ell_run(torch, card, ell_host_K)
+        by_path.update(paths)
+        iters.update(its)
+        del ell_host_K
+        print(f"slab and sharded phases: wall {time.perf_counter() - t:.1f} "
+              "s", flush=True)
+        paths, its = slice_j_run(torch, card, ell_operator)
+        by_path.update(paths)
+        iters.update(its)
+        del ell_operator
+        print(f"main lane: wall {time.perf_counter() - t_lanes:.1f} s",
+              flush=True)
+        for lane in lanes:
+            out = lane.join()
+            by_path.update(out["by_path"])
+            iters.update(out["iters"])
+            histories.update(out["histories"])
+    finally:
+        for lane in lanes:
+            lane.stop()
     launches["ell_scatter_shard"] = by_path["sharded ELL"]["ell_scatter"]
     launches["btd_scatter"] = by_path["banded cell"]["btd_scatter"]
     launches["dia_spmv_window"] = by_path["slab, multigrid"][
@@ -5632,4 +6037,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(run_lane(sys.argv[2]) if sys.argv[1:2] == [LANE_ARG]
+             else main())

@@ -11,7 +11,8 @@ function of tensors and keeps its inputs' dtype and device.  On CUDA the
 general path scatters the stiffness through the deterministic kernel of
 kernels/ell_scatter.py (M1) instead of the indexed adds here; element
 forces are summed into dofs by kernels/internal_force.py (M4) on every
-device.
+device (``internal_force`` here is femcy_tpu's public segment-sum, which
+no path of the port calls).
 """
 
 from __future__ import annotations
@@ -172,6 +173,22 @@ def element_internal_force(dsdx, sigma, vol):
     """Per-element nodal forces f[e, a, i] = sum_gp dsdx[a, :] . sigma[:, i]
     * vol -> (E, n, dm) (ref: stiffnessMtrx.py:609-644)."""
     return torch.einsum("egaj,egji,eg->eai", dsdx, sigma, vol)
+
+
+def internal_force(dsdx, sigma, vol, force_targets, n_dof: int):
+    """Internal nodal force (n_dof,): the element forces
+    (``element_internal_force``) summed into ``n_dof`` segments by
+    ``force_targets`` (E * n * dm,) int64, femcy_tpu's segment-sum.
+
+    A public helper for arbitrary segment ids, one ``index_add_``; no path
+    of the port calls it.  The Newton path sums element forces with the
+    deterministic kernel of kernels/internal_force.py (``scatter_force``,
+    M4) on node plans.  On CUDA the atomics of ``index_add_`` make the
+    last bits of the sum depend on the run.
+    """
+    f_elem = element_internal_force(dsdx, sigma, vol)
+    out = f_elem.new_zeros(n_dof)
+    return out.index_add_(0, force_targets, f_elem.reshape(-1))
 
 
 def _element_internal_force(u_e, x0_e, dN, w, material):

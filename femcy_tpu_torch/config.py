@@ -7,17 +7,12 @@ a dataclass so library users and the CLI can set them without editing code.
 
 Copy of ``femcy_tpu.config``: every field and default is the same (pinned by
 tests/test_torch_host.py), so a config written for the JAX package loads
-here.  Values whose code path the port does not have yet raise
-``NotImplementedError`` naming the ROADMAP slice that brings it.
+here, and every value it accepts has its code path in the port.
 """
 
 from __future__ import annotations
 
 import dataclasses
-
-#: (field, predicate on its value, the later slice that implements it);
-#: empty since slice I.3, the last one
-_LATER = ()
 
 _CHOICES = {
     "linear_solver": ("auto", "direct", "cg"),
@@ -284,10 +279,4 @@ class SolverConfig:
             if getattr(self, name) not in choices:
                 raise ValueError(
                     f"{name}={getattr(self, name)!r}: expected one of {choices}"
-                )
-        for name, later, slice_name in _LATER:
-            if later(getattr(self, name)):
-                raise NotImplementedError(
-                    f"SolverConfig({name}={getattr(self, name)!r}) needs "
-                    f"{slice_name}, not yet ported to femcy_tpu_torch"
                 )

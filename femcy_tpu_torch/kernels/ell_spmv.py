@@ -15,7 +15,9 @@ in slot order with one multiply-add per slot (see the source).
 
 ``spmv`` launches the kernel for CUDA tensors and raises if it cannot; for
 CPU tensors, and only for them, it runs the plain version
-(``solvers.cg.ell_spmv``).  ``spmv.launches`` counts kernel launches.
+(``solvers.cg.ell_spmv_plain``).  ``spmv.launches`` counts kernel launches.
+The public ``solvers.ell_spmv`` and ``solvers.pcg_solve``, which get no
+pattern, take ``colidx_spmv``: a plan built from the column ids alone.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import numpy as np
 import torch
 
 from femcy_tpu_torch.kernels import _build
-from femcy_tpu_torch.solvers.cg import ell_spmv
+from femcy_tpu_torch.solvers.cg import ell_spmv_plain
 from femcy_tpu_torch.topology import ELLPattern
 
 _ENTRY = {torch.float32: "femcy_ell_spmv_f32", torch.float64: "femcy_ell_spmv_f64"}
@@ -72,6 +74,24 @@ def rows_plan(colidx, row_counts, n_cols: int, device) -> EllSpmvPlan:
     )
 
 
+def colidx_plan(colidx) -> EllSpmvPlan:
+    """The plan of (n, W) int column ids of a square operator, built on
+    their own device with no host copy.  Every row takes its full width W:
+    padding slots hold value 0 at column 0, so they add only zeros, as in
+    the plain gather."""
+    n, width = colidx.shape
+    if n * width >= 2**31:
+        raise ValueError("ELL SpMV operands past 2^31 slots are not supported")
+    return EllSpmvPlan(
+        n=n,
+        width=width,
+        colidx_t=colidx.t().to(torch.int32).contiguous(),
+        row_counts=torch.full((n,), width, dtype=torch.int32,
+                              device=colidx.device),
+        n_cols=n,
+    )
+
+
 def prep_values(plan: EllSpmvPlan, values):
     """(n, W) row-major values -> (W, n) contiguous transposed operand: one
     pass over the values, amortised over every CG iteration of a solve."""
@@ -104,7 +124,7 @@ def spmv(plan: EllSpmvPlan, values_t, x):
     if not (values_t.is_contiguous() and x.is_contiguous()):
         raise ValueError("values_t and x must be contiguous")
     if x.device.type == "cpu":
-        return ell_spmv(values_t.t(), plan.colidx_t.t().long(), x)
+        return ell_spmv_plain(values_t.t(), plan.colidx_t.t().long(), x)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
 
@@ -120,10 +140,18 @@ def spmv(plan: EllSpmvPlan, values_t, x):
 spmv.launches = 0
 
 
-def make_spmv(pattern: ELLPattern, device):
-    """(prep, apply) pair for solvers.cg.pcg_solve."""
-    plan = spmv_plan(pattern, device)
+def _pair(plan: EllSpmvPlan):
     return (
         lambda values: prep_values(plan, values),
         lambda values_t, x: spmv(plan, values_t, x),
     )
+
+
+def make_spmv(pattern: ELLPattern, device):
+    """(prep, apply) pair for solvers.cg.pcg_solve."""
+    return _pair(spmv_plan(pattern, device))
+
+
+def colidx_spmv(colidx):
+    """(prep, apply) pair of ``colidx_plan``, on ``colidx``'s device."""
+    return _pair(colidx_plan(colidx))

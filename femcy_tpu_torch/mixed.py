@@ -51,7 +51,7 @@ from femcy_tpu_torch.kernels import ell_spmv
 from femcy_tpu_torch.kernels import mixed_scatter
 from femcy_tpu_torch.mesh import FEMesh
 from femcy_tpu_torch.multiblock import ElementBlock
-from femcy_tpu_torch.solvers.cg import pcg_solve
+from femcy_tpu_torch.solvers.cg import gather_spmv, pcg_solve
 from femcy_tpu_torch.system import cg_done, default_dtype, mises_stress
 from femcy_tpu_torch.topology import ELLPattern, colidx_valid_mask
 from femcy_tpu_torch.utils.device import resolve_device
@@ -340,7 +340,8 @@ class MixedSystem:
 
         self._arrs, self._solid_arrs, self._beam_arrs = phase("upload", upload)
         # the Jacobi PCG's SpMV: M2 on the union pattern, or the plain one
-        self._spmv = (None if config.spmv == "slices"
+        self._spmv = (gather_spmv(self._arrs["colidx"])
+                      if config.spmv == "slices"
                       else ell_spmv.make_spmv(self.pattern, device))
         #: CG iterations of the most recent CG solve, and of every one
         self._last_cg_iters: int = 0

@@ -64,7 +64,12 @@ from femcy_tpu_torch.materials import Material
 from femcy_tpu_torch.mesh import FEMesh
 from femcy_tpu_torch.solvers.amg import AlgebraicMultigrid
 from femcy_tpu_torch.solvers.bell import build_bell_plan
-from femcy_tpu_torch.solvers.cg import dense_pcg_solve, ell_to_dense, pcg_solve
+from femcy_tpu_torch.solvers.cg import (
+    dense_pcg_solve,
+    ell_to_dense,
+    gather_spmv,
+    pcg_solve,
+)
 from femcy_tpu_torch.solvers.direct import direct_solve
 from femcy_tpu_torch.system import (
     SolveReport,
@@ -305,7 +310,8 @@ class MultiBlockSystem:
         phase("gradients", gradients)
 
         # the Jacobi PCG's SpMV: M2 on the union pattern, or the plain one
-        self._spmv = (None if config.spmv == "slices"
+        self._spmv = (gather_spmv(self._arrs["colidx"])
+                      if config.spmv == "slices"
                       else ell_spmv.make_spmv(self.pattern, device))
         # nonlinear-analysis state (mirrors FEMSystem)
         self.geometric_nonlinear = False

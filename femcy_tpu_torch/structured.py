@@ -25,9 +25,13 @@ on the CPU it is the plain path.
 The Newton path also assembles from element matrices:
 ``structured_dia_scatter`` (Ke + Kg, or the consistent tangent, as P2's
 planes); its secant tangent alone takes ``structured_assemble_coords``
-from the current coordinates.  ``structured_force_scatter`` sums element
-forces into nodal forces by the same corner shifts (the plain version of
-M5, kernels/structured_force.py).
+from the current coordinates.  ``structured_assemble`` takes gradients
+and volumes to DIA values through P2, one orientation of Ke at a time
+(femcy_tpu's public function; no path of the port calls it), and
+``analytic_dia_values_device`` builds the analytic box operator with its
+Dirichlet elimination on the device.  ``structured_force_scatter`` sums
+element forces into nodal forces by the same corner shifts (the plain
+version of M5, kernels/structured_force.py).
 """
 
 from __future__ import annotations
@@ -310,6 +314,32 @@ def structured_dia_scatter(Ke, plan: StructuredPlan):
     return _accumulate(planes, plan)
 
 
+def structured_assemble(dsdx, vol, C, plan: StructuredPlan):
+    """Gradients and volumes -> DIA values (n_dof, K), with no scatter
+    (femcy_tpu.structured.structured_assemble).
+
+    dsdx (E, G, 4, 3) and vol (E, G) in box_tets cell-major order, E =
+    6 * nx * ny * nz; C (6, 6).  P2's (6, 144, nc) planes are filled one
+    Kuhn orientation at a time, straight from
+    ``assembly.element_stiffness(..., layout="ije")``, so only one
+    orientation's element stiffnesses are live beside them and no Ke ->
+    planes transpose runs; then ``_accumulate`` (P2 on CUDA).
+    """
+    nc = plan.nx * plan.ny * plan.nz
+    if dsdx.shape[0] != 6 * nc or vol.shape[0] != 6 * nc:
+        raise ValueError(
+            f"dsdx {tuple(dsdx.shape)} and vol {tuple(vol.shape)}: expected "
+            f"{6 * nc} elements"
+        )
+    dsdx_o = dsdx.reshape(nc, 6, *dsdx.shape[1:])
+    vol_o = vol.reshape(nc, 6, vol.shape[1])
+    planes = dsdx.new_empty((6, 144, nc))
+    for o in range(6):
+        planes[o] = assembly.element_stiffness(
+            dsdx_o[:, o], vol_o[:, o], C, layout="ije").reshape(144, nc)
+    return _accumulate(planes, plan)
+
+
 def structured_force_scatter(f_elem, plan: StructuredPlan, mesh: FEMesh):
     """Per-element nodal forces (E, 4, 3) in box_tets cell-major order ->
     global force (n_dof,), with no scatter: 6 orientations x 4 local nodes
@@ -450,6 +480,53 @@ def analytic_structured_dia_values(
                 )
                 V += m[..., None, None] * c[sx, sy, sz]
     return V.reshape(-1, K)
+
+
+def analytic_dia_values_device(c, grid, offsets, diag_idx: int, fixed):
+    """``analytic_structured_dia_values`` and the homogeneous symmetric
+    zero-one Dirichlet elimination (``dia_dirichlet_linear_numpy``) on the
+    device of ``fixed`` (femcy_tpu.structured.analytic_dia_values_device).
+
+    c: (2, 2, 2, 3, K) cell tensor (``analytic_cell_tensor``), numpy or a
+    tensor; grid: (nx, ny, nz); fixed: (n_dof,) bool tensor.  Returns the
+    eliminated (n_dof, K) values in c's float dtype (float64 for numpy).
+    Plain torch: femcy_tpu computes it outside any Pallas kernel.
+    """
+    nx, ny, nz = (int(d) for d in grid)
+    c = torch.as_tensor(c, device=fixed.device)
+    K = c.shape[-1]
+
+    def mask(n, s):
+        p = torch.arange(n + 1, device=fixed.device)
+        return (p >= 1 if s else p <= n - 1).to(c.dtype)
+
+    V = c.new_zeros((nx + 1, ny + 1, nz + 1, 3, K))
+    for sx in (0, 1):
+        for sy in (0, 1):
+            for sz in (0, 1):
+                m = (
+                    mask(nx, sx)[:, None, None]
+                    * mask(ny, sy)[None, :, None]
+                    * mask(nz, sz)[None, None, :]
+                )
+                V = V + m[..., None, None] * c[sx, sy, sz]
+    values = V.reshape(-1, K)
+
+    n = values.shape[0]
+    off_list = [int(o) for o in np.asarray(offsets)]
+    pad_lo = max(0, -min(off_list))
+    pad_hi = max(0, max(off_list))
+    fixed_pad = torch.cat([fixed.new_zeros(pad_lo), fixed,
+                           fixed.new_zeros(pad_hi)])
+    col_fixed = torch.stack(
+        [fixed_pad[pad_lo + off : pad_lo + off + n] for off in off_list],
+        dim=1,
+    )
+    values = torch.where(col_fixed | fixed[:, None], values.new_zeros(()),
+                         values)
+    values[:, diag_idx] = torch.where(fixed, values.new_ones(()),
+                                      values[:, diag_idx])
+    return values
 
 
 def cell_gradients(mesh: FEMesh):

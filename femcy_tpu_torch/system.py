@@ -66,9 +66,7 @@ three layouts:
 
 Every tensor lives on the ``device`` given to ``FEMSystem`` (``"cuda"`` by
 default, ``"cpu"`` when asked for; CUDA without a card raises) in one float
-dtype (float64 unless ``FEMCY_TPU_X64=0``, as in femcy_tpu).  The options
-listed in config._LATER raise NotImplementedError naming the slice that
-brings them.
+dtype (float64 unless ``FEMCY_TPU_X64=0``, as in femcy_tpu).
 """
 
 from __future__ import annotations
@@ -96,7 +94,12 @@ from femcy_tpu_torch.materials import Material
 from femcy_tpu_torch.mesh import FEMesh
 from femcy_tpu_torch.solvers.amg import AlgebraicMultigrid
 from femcy_tpu_torch.solvers.bell import build_bell_plan, plan_node_graph
-from femcy_tpu_torch.solvers.cg import dense_pcg_solve, ell_to_dense, pcg_solve
+from femcy_tpu_torch.solvers.cg import (
+    dense_pcg_solve,
+    ell_to_dense,
+    gather_spmv,
+    pcg_solve,
+)
 from femcy_tpu_torch.solvers.dia import (
     DIAPattern,
     build_dia_pattern,
@@ -735,10 +738,12 @@ class FEMSystem:
         )
 
         #: (prep, apply) of the SpMV kernel of the layout (P1 on DIA, M2 on
-        #: ELL); None = the plain torch SpMV (and under "amg", whose route
-        #: applies M3 instead)
-        if config.spmv == "slices" or amg:
-            self._spmv = None
+        #: ELL; under "amg", whose solve applies M3, the Jacobi PCG of the
+        #: fused step and the device loop still takes M2); the plain torch
+        #: SpMV under "slices": None on DIA, the gather pair on ELL
+        if config.spmv == "slices":
+            self._spmv = (None if self.dia is not None
+                          else gather_spmv(self._arrs["colidx"]))
         elif self.dia is not None:
             self._spmv = make_spmv(mesh.n_dof, self.dia.offsets, device)
         else:

@@ -320,13 +320,15 @@ def test_general_path_on_cpu_launches_no_kernel():
 
 
 def test_spmv_slices_on_ell_is_the_plain_gather():
-    """spmv="slices" keeps the plain row gather; the default's (prep, apply)
-    pair runs the same plain SpMV on the transposed operand on the CPU:
-    equal iteration counts, x equal to roundoff (1e-10)."""
+    """spmv="slices" keeps the plain row gather (its (prep, apply) pair,
+    ``cg.gather_spmv``, takes the values as they are); the default's pair
+    runs the same plain SpMV on the transposed operand on the CPU: equal
+    iteration counts, x equal to roundoff (1e-10)."""
     out = {}
     for spmv in ("auto", "slices"):
         _, _, s = _pair("tet4_unstructured", linear_solver="cg", spmv=spmv)
-        assert (s._spmv is None) == (spmv == "slices")
+        probe = torch.zeros(s.pattern.n_dof, s.pattern.width, dtype=s.dtype)
+        assert (s._spmv[0](probe) is probe) == (spmv == "slices")
         s.solve(convert.inp_from(_model(s.mesh)))
         out[spmv] = (s.dof, s._last_cg_iters)
     assert out["auto"][1] == out["slices"][1] > 0

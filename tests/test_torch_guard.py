@@ -213,13 +213,15 @@ def test_cli_runs_without_matplotlib_and_pillow(tmp_path):
 
 
 def test_package_sources_never_import_jax():
+    """Neither the package's sources nor chip_smoke.py, which runs on the
+    card's machine, import JAX or femcy_tpu."""
     pkg = pathlib.Path(femcy_tpu_torch.__file__).parent
     sources = set(pkg.rglob("*.py"))
     assert (pkg / "device_loop.py") in sources
     for name in ("structured.py", "sharded.py", "banded.py", "shards.py"):
         assert (pkg / "parallel" / name) in sources
     assert (pkg / "kernels" / "btd_scatter.py") in sources
-    for path in pkg.rglob("*.py"):
+    for path in sorted(sources) + [REPO / "chip_smoke.py"]:
         for line in path.read_text().splitlines():
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:

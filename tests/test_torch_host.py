@@ -134,10 +134,8 @@ def test_solver_config_fields_and_defaults():
     ],
 )
 def test_solver_config_later_values_raise(kw):
-    """Every value listed in config._LATER raises NotImplementedError
-    naming its slice; since slice I.3 (banded sharding, the last one) the
-    list is empty and the once-later values build as in femcy_tpu."""
-    assert tcfg._LATER == ()
+    """The values the port once refused until a later slice (banded
+    sharding the last of them) build as in femcy_tpu."""
     assert dataclasses.asdict(tcfg.SolverConfig(**kw)) == dataclasses.asdict(
         jcfg.SolverConfig(**kw))
 
