@@ -2335,9 +2335,8 @@ def cycle_launches(amg) -> int:
 
 def device_profile(torch, fn):
     """(wall s, device busy ms, device events) of ``fn()`` under
-    torch.profiler, synchronised; busy time sums the CUDA events only."""
-    from femcy_tpu_torch.tools.newton_profile import _device_events
-
+    torch.profiler, synchronised; busy time is the union of the CUDA
+    events' intervals."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -2346,10 +2345,15 @@ def device_profile(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    busy, _ = _device_events(prof)
-    n_events = sum(ev.device_type == torch.autograd.DeviceType.CUDA
-                   for ev in prof.events())
-    return wall, busy / 1e3, n_events
+    intervals = sorted(
+        (ev.time_range.start, ev.time_range.end) for ev in prof.events()
+        if ev.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for s, e in intervals:
+        if e > end:
+            busy_us += e - max(s, end)
+            end = e
+    return wall, busy_us / 1e3, len(intervals)
 
 
 def bell_operands(system, values_bc):
@@ -4117,8 +4121,8 @@ def refine_box_run(torch, card, mg_dof):
           f"refinement: {outer} outer iterations, {EXPECTED_REFINE_OUTER} "
           "expected")
     print(f"refinement, box_tets{FULL} in float32 on {card}: {outer} outer "
-          f"iterations (MG-CG iterations {cg}), f64 host twin built in "
-          f"{system._refine_twin_seconds:.3f} s, first solve {first_s:.3f} s"
+          f"iterations (MG-CG iterations {cg}), first solve (f64 host "
+          f"twin built in it) {first_s:.3f} s"
           f", warm {warm_s:.3f} s, plain float32 solve {plain_s:.3f} s; "
           f"||b - K64 x||/||b||: refined {cert:.3e}, plain float32 "
           f"{cert32:.3e}; max|x - x_MG64|/max|x_MG64| (phase 5's float64 "

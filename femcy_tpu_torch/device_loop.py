@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from femcy_tpu_torch import assembly, bc as bc_mod
+from femcy_tpu_torch.utils.timing import seconds_since
 
 
 def _unsupported(cfg, system, on_increment, on_newton) -> Optional[str]:
@@ -202,7 +203,7 @@ class DeviceLoopProgram:
         from femcy_tpu_torch.system import IncrementRecord, SolveReport
 
         sy = self.system
-        t_start = _time.time()
+        t_start = _time.perf_counter()
         if not resume:
             sy.dt = self.ini_inc
             sy.time0 = sy.time1 = 0.0
@@ -247,7 +248,8 @@ class DeviceLoopProgram:
         if sy.config.checkpoint_path and success:
             sy._write_checkpoint(sy.config.checkpoint_path, kinc)
         return SolveReport(success=success, increments=records,
-                           wall_time=_time.time() - t_start, message=message)
+                           wall_time=seconds_since(t_start, sy.device),
+                           message=message)
 
 
 def device_solve(system, inp, user_dirichlet: Optional[Callable] = None,

@@ -83,6 +83,7 @@ from femcy_tpu_torch.system import (
 )
 from femcy_tpu_torch.topology import ELLPattern, colidx_valid_mask
 from femcy_tpu_torch.utils.device import resolve_device
+from femcy_tpu_torch.utils.timing import seconds_since
 
 logger = logging.getLogger("femcy_tpu_torch")
 
@@ -596,7 +597,7 @@ class MultiBlockSystem:
         blocks: femcy_tpu's state machine (dt cutback with dof rollback,
         growth after fast convergence, min_inc abort, the dynamic rescue),
         ``run_increments`` shared with FEMSystem.solve."""
-        t_start = _time.time()
+        t_start = _time.perf_counter()
         self.geometric_nonlinear = True
         self.dt = model.time_incs["ini_inc"]
         self.time0 = self.time1 = 0.0
@@ -630,7 +631,7 @@ class MultiBlockSystem:
                     if self.config.dynamic_rescue else None))
         self.last_report = SolveReport(
             success=success, increments=records,
-            wall_time=_time.time() - t_start, message=message,
+            wall_time=seconds_since(t_start, self.device), message=message,
         )
         return self.last_report
 

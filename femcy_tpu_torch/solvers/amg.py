@@ -437,7 +437,7 @@ class AlgebraicMultigrid:
         # caller hands the operator pulled back through bf16); the
         # rank-sensitive pieces (rigid-body QR, coarsest dense inverse)
         # stay f64 below.
-        _t_prep = _time.time()
+        _t_prep = _time.perf_counter()
         A = sp.csr_matrix(A)
         if A.dtype not in (np.float32, np.float64):
             A = A.astype(np.float64)
@@ -458,7 +458,7 @@ class AlgebraicMultigrid:
         #: host-setup wall-clock breakdown (seconds per phase)
         _t_total = _t_prep
         self.setup_seconds = {
-            "prep": _time.time() - _t_prep,
+            "prep": _time.perf_counter() - _t_prep,
             "lmax": 0.0, "bell": 0.0, "aggregate": 0.0, "qr": 0.0,
             "rap": 0.0, "coarse_inv": 0.0, "tobsr": 0.0, "upload": 0.0,
             "other": 0.0, "total": 0.0,
@@ -467,14 +467,14 @@ class AlgebraicMultigrid:
         # block-level Galerkin products chase dm^2 fewer indices than the
         # scalar CSR ones, the node graph is one einsum over the stored
         # blocks, and the block-ELL arrays are pads of the BSR data
-        _t = _time.time()
+        _t = _time.perf_counter()
         A = A.tobsr((dm, dm))
-        self.setup_seconds["tobsr"] += _time.time() - _t
+        self.setup_seconds["tobsr"] += _time.perf_counter() - _t
         li = 0
         while True:
-            _t = _time.time()
+            _t = _time.perf_counter()
             lmax = _lambda_max_dinv(A)
-            self.setup_seconds["lmax"] += _time.time() - _t
+            self.setup_seconds["lmax"] += _time.perf_counter() - _t
             d = A.diagonal()
             inv_diag = np.where(d != 0.0, 1.0 / np.where(d != 0.0, d, 1.0), 0.0)
             blk = dm if li == 0 else B.shape[1]
@@ -483,9 +483,9 @@ class AlgebraicMultigrid:
             lv = {"n_dof": A.shape[0], "bs": blk, "lmax": lmax,
                   "inv_diag": inv_diag.astype(np_dtype)}
             if li > 0:
-                _t = _time.time()
+                _t = _time.perf_counter()
                 ev, ec = _bsr_to_bell(A)
-                self.setup_seconds["bell"] += _time.time() - _t
+                self.setup_seconds["bell"] += _time.perf_counter() - _t
                 lv["A"] = (ev.astype(np_dtype), ec)
             staged.append(lv)
             if A.shape[0] <= coarse_max_dof or li + 1 >= max_levels:
@@ -497,7 +497,7 @@ class AlgebraicMultigrid:
             # fine_strength_theta > 0 filters it too, for graded meshes.
             # Coarse Galerkin graphs densify, so they get the strength
             # filter, halved until the coarsening ratio is >= 3x.
-            t0 = _time.time()
+            t0 = _time.perf_counter()
             theta = strength_theta if li > 0 else float(fine_strength_theta)
             agg = n_agg = None
             while True:
@@ -515,23 +515,23 @@ class AlgebraicMultigrid:
                 if n_agg * B.shape[1] <= accept * A.shape[0] or theta == 0.0:
                     break
                 theta = theta / 2.0 if theta > 0.004 else 0.0
-            self.setup_seconds["aggregate"] += _time.time() - t0
+            self.setup_seconds["aggregate"] += _time.perf_counter() - t0
             if n_agg * B.shape[1] >= 0.6 * A.shape[0]:
                 break  # coarsening ratio too poor to pay for another level
             logger.debug(
                 "amg level %d: %d -> %d dofs (theta=%.3g, %.1fs aggregate)",
                 li, A.shape[0], n_agg * B.shape[1], theta,
-                _time.time() - t0,
+                _time.perf_counter() - t0,
             )
-            _t = _time.time()
+            _t = _time.perf_counter()
             # QR/rank guard in f64; the block data lands in the operator
             # dtype (a mixed-dtype scipy product would upcast everything)
             P0, Bc = _tentative_prolongator_bsr(agg, n_agg, B, blk, host_dtype)
-            self.setup_seconds["qr"] += _time.time() - _t
+            self.setup_seconds["qr"] += _time.perf_counter() - _t
             # one damped-Jacobi smoothing pass on the tentative basis:
             # P = P0 - (omega/lmax) D^-1 (A @ P0), the diagonal scaling
             # applied in place on the BSR block rows
-            _t = _time.time()
+            _t = _time.perf_counter()
             Z = A @ P0
             zrows = np.repeat(
                 np.arange(Z.shape[0] // blk, dtype=np.int64),
@@ -542,17 +542,17 @@ class AlgebraicMultigrid:
                 * inv_diag.astype(host_dtype).reshape(-1, blk)[zrows][:, :, None]
             )
             P = P0 - Z
-            self.setup_seconds["rap"] += _time.time() - _t
-            _t = _time.time()
+            self.setup_seconds["rap"] += _time.perf_counter() - _t
+            _t = _time.perf_counter()
             pv, pc = _bsr_to_bell(P)
             R = P.transpose().tobsr(blocksize=(B.shape[1], blk))
             rv, rc = _bsr_to_bell(R)
-            self.setup_seconds["bell"] += _time.time() - _t
+            self.setup_seconds["bell"] += _time.perf_counter() - _t
             lv["P"] = (pv.astype(np_dtype), pc)
             lv["R"] = (rv.astype(np_dtype), rc)
-            _t = _time.time()
+            _t = _time.perf_counter()
             A = _regularize_bsr(R @ (A @ P))
-            self.setup_seconds["rap"] += _time.time() - _t
+            self.setup_seconds["rap"] += _time.perf_counter() - _t
             B = Bc
             li += 1
 
@@ -572,22 +572,22 @@ class AlgebraicMultigrid:
             )
             coarse_inv = np.zeros((0, 0), dtype=np_dtype)
         else:
-            _t = _time.time()
+            _t = _time.perf_counter()
             # the inverse itself in f64 regardless of the hierarchy dtype
             A_dense = A.toarray().astype(np.float64)
             coarse_inv = np.linalg.inv(A_dense).astype(np_dtype)
-            self.setup_seconds["coarse_inv"] += _time.time() - _t
+            self.setup_seconds["coarse_inv"] += _time.perf_counter() - _t
         # a single-level hierarchy degenerates to "dense-solve the fine
         # operator": legal (coarse_max_dof guards the size)
         self._single = len(staged) == 1
 
-        _t = _time.time()
+        _t = _time.perf_counter()
         self.levels: List[_AMGLevel] = _device_levels(staged, self.device)
         self._coarse_inv = torch.as_tensor(coarse_inv, device=self.device)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        self.setup_seconds["upload"] = _time.time() - _t
-        self.setup_seconds["total"] = _time.time() - _t_total
+        self.setup_seconds["upload"] = _time.perf_counter() - _t
+        self.setup_seconds["total"] = _time.perf_counter() - _t_total
         self.setup_seconds["other"] = self.setup_seconds["total"] - sum(
             v for k, v in self.setup_seconds.items()
             if k not in ("total", "other")

@@ -26,6 +26,7 @@ import torch
 from femcy_tpu_torch.linalg import det_small, inv_small
 from femcy_tpu_torch.mesh import FEMesh
 from femcy_tpu_torch.topology import ELLPattern, build_pattern
+from femcy_tpu_torch.utils.timing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -346,23 +347,35 @@ def pcg(apply_a, apply_m, b, eps: float, max_iters: int):
     ``max|r| >= eps * max|b|``, not at all when b = 0 (femcy_tpu's
     stopping rule).  The loop runs on the host; each iteration reads one
     scalar back for the stopping test.  Returns (x, iterations, max|r|).
+
+    Under a profile the solve is the span "femcy.pcg", each iteration with
+    the stopping test that follows it "femcy.pcg.iter", and each
+    ``apply_m`` "femcy.pcg.precond"; the two inner ranges are made once a
+    solve and entered again each iteration.
     """
-    x = torch.zeros_like(b)
-    r = b
-    d = apply_m(r)
-    rmr = torch.dot(r, d)
-    rmax0 = r.abs().max()
-    thresh = eps * rmax0
-    k = 0
-    if bool(rmax0 > 0.0):
-        while k < max_iters and bool(r.abs().max() >= thresh):
-            Ad = apply_a(d)
-            alpha = rmr / torch.dot(d, Ad)
-            x = x + alpha * d
-            r = r - alpha * Ad
-            z = apply_m(r)
-            rmr_new = torch.dot(r, z)
-            d = z + (rmr_new / rmr) * d
-            rmr = rmr_new
-            k += 1
-    return x, k, r.abs().max()
+    it, pre = span("femcy.pcg.iter"), span("femcy.pcg.precond")
+    with span("femcy.pcg"):
+        x = torch.zeros_like(b)
+        r = b
+        with pre:
+            d = apply_m(r)
+        rmr = torch.dot(r, d)
+        rmax0 = r.abs().max()
+        thresh = eps * rmax0
+        k = 0
+        go = (bool(rmax0 > 0.0) and k < max_iters
+              and bool(r.abs().max() >= thresh))
+        while go:
+            with it:
+                Ad = apply_a(d)
+                alpha = rmr / torch.dot(d, Ad)
+                x = x + alpha * d
+                r = r - alpha * Ad
+                with pre:
+                    z = apply_m(r)
+                rmr_new = torch.dot(r, z)
+                d = z + (rmr_new / rmr) * d
+                rmr = rmr_new
+                k += 1
+                go = k < max_iters and bool(r.abs().max() >= thresh)
+        return x, k, r.abs().max()

@@ -119,7 +119,7 @@ from femcy_tpu_torch.structured import (
 )
 from femcy_tpu_torch.topology import ELLPattern, build_pattern
 from femcy_tpu_torch.utils.device import resolve_device
-from femcy_tpu_torch.utils.timing import Timer
+from femcy_tpu_torch.utils.timing import Timer, seconds_since, span
 
 logger = logging.getLogger("femcy_tpu_torch")
 
@@ -715,12 +715,10 @@ class FEMSystem:
         self._stab_scale: Optional[torch.Tensor] = None
         #: mixed-precision refinement (config.mixed_precision_refine): the
         #: increment's f64 host (rhs, fixed, sval), the f64 host operator
-        #: (built at the first linear refinement, its wall in
-        #: ``_refine_twin_seconds``), the linear refinement's cached LU and
-        #: its last outer iteration count
+        #: (built at the first linear refinement), the linear refinement's
+        #: cached LU and its last outer iteration count
         self._host_bc = None
         self._refine_K = None
-        self._refine_twin_seconds: Optional[float] = None
         self._refine_reuse: Optional[dict] = None
         self._refine_iters: int = 0
         #: set while refinement's inner solves run: they truncate by design
@@ -821,21 +819,29 @@ class FEMSystem:
     # ------------------------------------------------------------------ #
     # device steps
     # ------------------------------------------------------------------ #
-    def _assemble_values(self, coords=None):
+    def _assemble_values(self):
         """Values of the material stiffness in the system's layout, on the
-        initial configuration by default, else (box only) on the
-        configuration of ``coords``: on the structured box by
-        structured_assemble_coords' default route, else element
-        stiffnesses scattered by kernels/ell_scatter (one M1 launch on
-        CUDA)."""
-        a = self._arrs
+        initial configuration: on the structured box by
+        ``_structured_values``, else element stiffnesses scattered by
+        kernels/ell_scatter (one M1 launch on CUDA)."""
         if self._structured_plan is not None:
-            return structured_assemble_coords(
-                a["nodes"] if coords is None else coords, self.mesh,
-                a["dN"], a["w"], a["C"],
-                self._structured_plan, C_host=np.asarray(self.material.C),
-            )
-        return scatter(self._element_stiffness(), self._scatter_plan)
+            with span("femcy.assemble.scatter"):
+                return self._structured_values(self._arrs["nodes"])
+        with span("femcy.assemble.ke"):
+            Ke = self._element_stiffness()
+        with span("femcy.assemble.scatter"):
+            return scatter(Ke, self._scatter_plan)
+
+    def _structured_values(self, coords):
+        """(box only) DIA values of the material stiffness on the
+        configuration of ``coords``, by structured_assemble_coords' default
+        route (P3 on CUDA, which makes each element's stiffness inside its
+        scatter)."""
+        a = self._arrs
+        return structured_assemble_coords(
+            coords, self.mesh, a["dN"], a["w"], a["C"],
+            self._structured_plan, C_host=np.asarray(self.material.C),
+        )
 
     def _element_stiffness(self):
         """Element stiffnesses (E, edof, edof) on the initial configuration
@@ -852,14 +858,16 @@ class FEMSystem:
         return scatter(Ke, self._scatter_plan)
 
     def _dirichlet_newton(self, values, residual, fixed):
-        if self.dia is not None:
-            return dia_dirichlet_newton(
-                values, self.dia.offsets, self.dia.diag_idx, residual, fixed
+        with span("femcy.dirichlet"):
+            if self.dia is not None:
+                return dia_dirichlet_newton(
+                    values, self.dia.offsets, self.dia.diag_idx, residual,
+                    fixed
+                )
+            a = self._arrs
+            return bc_mod.apply_dirichlet_newton(
+                values, a["colidx"], a["diag_slot"], residual, fixed
             )
-        a = self._arrs
-        return bc_mod.apply_dirichlet_newton(
-            values, a["colidx"], a["diag_slot"], residual, fixed
-        )
 
     def _internal_force_parts(self, dof, fixed, sval):
         """Shared first half of every Newton evaluation: pin prescribed
@@ -868,34 +876,41 @@ class FEMSystem:
         The force is summed by M5 on the box and by M4 elsewhere (their
         plain versions on the CPU).  Returns (pinned dof, coords, dsdx,
         vol, sigma, f_int) -- the stabilization force, when on, is already
-        folded into ``f_int``."""
+        folded into ``f_int``.  Under a profile the three steps are the
+        spans "femcy.newton.kinematics", ".stress" and ".force"."""
         a = self._arrs
         dm = self.mesh.dm
-        dof = bc_mod.pin_dof(dof, fixed, sval)
-        coords = a["nodes"] + dof.reshape(-1, dm)
-        if self._structured_plan is not None:
-            # element node values by grid slices, no gather
-            u_e = structured_element_nodes(dof.reshape(-1, dm), self.mesh)
-            F = assembly.deformation_gradient_u(u_e, a["dsdX0"])
-            x_e = structured_element_nodes(coords, self.mesh)
-            dsdx, vol = assembly.gradients_and_volume_x(x_e, a["dN"], a["w"])
-        else:
-            F = assembly.deformation_gradient(dof, a["elements"], a["dsdX0"])
-            dsdx, vol = assembly.gradients_and_volume(
-                coords, a["elements"], a["dN"], a["w"]
-            )
-        sigma = assembly.gp_stress(F, self.material, large=True)
-        f_elem = assembly.element_internal_force(dsdx, sigma, vol).contiguous()
-        if self._structured_plan is not None:
-            f_int = force_scatter(f_elem, self._structured_plan, self.mesh)
-        else:
-            f_int = scatter_force(f_elem, self._scatter_plan)
-        if self._stab_diag is not None:
-            # static stabilization: the viscous force, applied BEFORE the
-            # Dirichlet treatment so constrained rows stay zero-one; the
-            # matching tangent add happens in _newton_eval
-            d = self._stab_scale * self._stab_diag
-            f_int = f_int + d * (dof - self._stab_ref)
+        with span("femcy.newton.kinematics"):
+            dof = bc_mod.pin_dof(dof, fixed, sval)
+            coords = a["nodes"] + dof.reshape(-1, dm)
+            if self._structured_plan is not None:
+                # element node values by grid slices, no gather
+                u_e = structured_element_nodes(dof.reshape(-1, dm), self.mesh)
+                F = assembly.deformation_gradient_u(u_e, a["dsdX0"])
+                x_e = structured_element_nodes(coords, self.mesh)
+                dsdx, vol = assembly.gradients_and_volume_x(
+                    x_e, a["dN"], a["w"])
+            else:
+                F = assembly.deformation_gradient(dof, a["elements"],
+                                                  a["dsdX0"])
+                dsdx, vol = assembly.gradients_and_volume(
+                    coords, a["elements"], a["dN"], a["w"]
+                )
+        with span("femcy.newton.stress"):
+            sigma = assembly.gp_stress(F, self.material, large=True)
+        with span("femcy.newton.force"):
+            f_elem = assembly.element_internal_force(
+                dsdx, sigma, vol).contiguous()
+            if self._structured_plan is not None:
+                f_int = force_scatter(f_elem, self._structured_plan, self.mesh)
+            else:
+                f_int = scatter_force(f_elem, self._scatter_plan)
+            if self._stab_diag is not None:
+                # static stabilization: the viscous force, applied BEFORE
+                # the Dirichlet treatment so constrained rows stay
+                # zero-one; the matching tangent add happens in _newton_eval
+                d = self._stab_scale * self._stab_diag
+                f_int = f_int + d * (dof - self._stab_ref)
         return dof, coords, dsdx, vol, sigma, f_int
 
     def _newton_eval(self, dof, rhs, fixed, sval):
@@ -904,25 +919,33 @@ class FEMSystem:
         Pins the prescribed dofs, computes internal force and tangent on the
         current configuration, applies the Newton Dirichlet treatment and
         returns (pinned dof, K_bc, residual_bc, rms residual tensor, vol)
-        (ref: stiffnessMtrx.py:609-644 + 756-758 + 310-341).
+        (ref: stiffnessMtrx.py:609-644 + 756-758 + 310-341).  Under a
+        profile the element tangent is the span "femcy.newton.tangent" and
+        its scatter "femcy.newton.scatter"; the box's route without Kg has
+        the scatter alone, since P3 makes the tangent inside it.
         """
         a = self._arrs
         cfg = self.config
         dof, coords, dsdx, vol, sigma, f_int = self._internal_force_parts(
             dof, fixed, sval
         )
-        if cfg.tangent == "consistent":
-            Ke = assembly.consistent_tangent(
-                dof, a["elements"], a["nodes"], a["dN"], a["w"], self.material
-            )
-            values = self._scatter(Ke)
-        elif self._structured_plan is None or cfg.geometric_stiffness:
-            Ke = assembly.element_stiffness(dsdx, vol, a["C"])
-            if cfg.geometric_stiffness:
-                Ke += assembly.geometric_stiffness(dsdx, sigma, vol)
-            values = self._scatter(Ke)
+        if (cfg.tangent == "consistent" or self._structured_plan is None
+                or cfg.geometric_stiffness):
+            with span("femcy.newton.tangent"):
+                if cfg.tangent == "consistent":
+                    Ke = assembly.consistent_tangent(
+                        dof, a["elements"], a["nodes"], a["dN"], a["w"],
+                        self.material
+                    )
+                else:
+                    Ke = assembly.element_stiffness(dsdx, vol, a["C"])
+                    if cfg.geometric_stiffness:
+                        Ke += assembly.geometric_stiffness(dsdx, sigma, vol)
+            with span("femcy.newton.scatter"):
+                values = self._scatter(Ke)
         else:
-            values = self._assemble_values(coords)
+            with span("femcy.newton.scatter"):
+                values = self._structured_values(coords)
         self._add_stab_diag(values)
         residual = f_int - rhs
         values, residual = self._dirichlet_newton(values, residual, fixed)
@@ -996,17 +1019,21 @@ class FEMSystem:
 
     def _linear_system(self, rhs, fixed, sval):
         """Assemble + Dirichlet-eliminate for the linear path, always on the
-        initial configuration (as femcy_tpu's _linear_system_impl)."""
-        values = self._assemble_values()
-        if self.dia is not None:
-            values, rhs = dia_dirichlet_linear(
-                values, self.dia.offsets, self.dia.diag_idx, rhs, fixed, sval
-            )
-        else:
-            values, rhs = bc_mod.apply_dirichlet_linear(
-                values, self._arrs["colidx"], self._arrs["diag_slot"], rhs,
-                fixed, sval,
-            )
+        initial configuration (as femcy_tpu's _linear_system_impl); the
+        spans "femcy.assemble" and "femcy.dirichlet" under a profile."""
+        with span("femcy.assemble"):
+            values = self._assemble_values()
+        with span("femcy.dirichlet"):
+            if self.dia is not None:
+                values, rhs = dia_dirichlet_linear(
+                    values, self.dia.offsets, self.dia.diag_idx, rhs, fixed,
+                    sval
+                )
+            else:
+                values, rhs = bc_mod.apply_dirichlet_linear(
+                    values, self._arrs["colidx"], self._arrs["diag_slot"],
+                    rhs, fixed, sval,
+                )
         return values, rhs, self._arrs["vol0"]
 
     def _solve_linear_system(self, values, b, fixed, reuse=None):
@@ -1083,14 +1110,12 @@ class FEMSystem:
 
         cfg = self.config
         if self._refine_K is None:
-            t = _time.perf_counter()
             pattern = self.pattern
             if pattern is None:
                 pattern = build_pattern(self.mesh)
             self._refine_K = assembly_host.assemble_csr_host(
                 self.mesh, pattern, np.asarray(self.material.C))
             self._refine_reuse = {}
-            self._refine_twin_seconds = _time.perf_counter() - t
         K_bc, b = assembly_host.dirichlet_csr_host(
             self._refine_K, rhs_np, fixed_np, sval_np)
         # the inner operator: the eliminated device assembly (initial
@@ -1353,7 +1378,7 @@ class FEMSystem:
         Newton evaluation (the reference's ``show_newton_steps`` hook,
         stiffnessMtrx.py:663-666, 788-790).
         """
-        t_start = _time.time()
+        t_start = _time.perf_counter()
         cfg = self.config
         if cfg.device_loop:
             # the device-loop program (device_loop.py); raises on what it
@@ -1412,23 +1437,24 @@ class FEMSystem:
                 )
 
         def boundary(time1, load_ratio):
-            fixed, sval = bc_mod.build_dirichlet_arrays(
-                inp.dirichlet_bcs, self.mesh, time1, load_ratio, user_dirichlet
-            )
-            fixed_d = torch.as_tensor(fixed, device=self.device)
-            sval_d = torch.as_tensor(sval, dtype=self.dtype, device=self.device)
-            self._last_dirichlet = (fixed_d, sval_d)
-            if patterns.shape[0]:
-                rhs = (tractions_d * load_ratio) @ patterns_d
-            else:
-                rhs = torch.zeros_like(self.dof)
-            # f64 host copies feed the refinement's exact residual
-            self._host_bc = None
-            if cfg.mixed_precision_refine:
-                rhs_np = ((tractions * load_ratio) @ patterns
-                          if patterns.shape[0] else np.zeros(self.mesh.n_dof))
-                self._host_bc = (rhs_np, fixed, sval)
-            return rhs, fixed_d, sval_d
+            with span("femcy.boundary"):
+                fixed, sval = bc_mod.build_dirichlet_arrays(
+                    inp.dirichlet_bcs, self.mesh, time1, load_ratio, user_dirichlet
+                )
+                fixed_d = torch.as_tensor(fixed, device=self.device)
+                sval_d = torch.as_tensor(sval, dtype=self.dtype, device=self.device)
+                self._last_dirichlet = (fixed_d, sval_d)
+                if patterns.shape[0]:
+                    rhs = (tractions_d * load_ratio) @ patterns_d
+                else:
+                    rhs = torch.zeros_like(self.dof)
+                # f64 host copies feed the refinement's exact residual
+                self._host_bc = None
+                if cfg.mixed_precision_refine:
+                    rhs_np = ((tractions * load_ratio) @ patterns
+                              if patterns.shape[0] else np.zeros(self.mesh.n_dof))
+                    self._host_bc = (rhs_np, fixed, sval)
+                return rhs, fixed_d, sval_d
 
         def after_inc(dof_old):
             nonlocal dof_prev, dt_prev, stab_c, stab_energy
@@ -1468,11 +1494,14 @@ class FEMSystem:
                 dof_prev, dt_prev = None, 0.0
             return out
 
-        records, success, message = run_increments(
-            self, incs, boundary, on_newton, increment_done, before_inc,
-            after_inc, self._diagnose_failure if cfg.diagnose_failure else None,
-            rescue if cfg.dynamic_rescue and self.geometric_nonlinear else None,
-        )
+        with span("femcy.solve"):
+            records, success, message = run_increments(
+                self, incs, boundary, on_newton, increment_done, before_inc,
+                after_inc,
+                self._diagnose_failure if cfg.diagnose_failure else None,
+                rescue if cfg.dynamic_rescue and self.geometric_nonlinear
+                else None,
+            )
 
         if stab_on and success and stab_energy > 0.0:
             elas = abs(self.elastic_energy())
@@ -1486,7 +1515,7 @@ class FEMSystem:
         return SolveReport(
             success=success,
             increments=records,
-            wall_time=_time.time() - t_start,
+            wall_time=seconds_since(t_start, self.device),
             message=message,
             stabilization_energy=stab_energy,
         )
@@ -1768,15 +1797,16 @@ class FEMSystem:
         """(strain, cauchy stress, mises) at every (element, GP): Green
         strain and the large-deformation stress on the geometric-nonlinear
         path, small strain and stress otherwise."""
-        F = self.deformation_gradient()
-        eye = torch.eye(self.mesh.dm, dtype=F.dtype, device=F.device)
-        if self.geometric_nonlinear:
-            strain = (F.transpose(-1, -2) @ F - eye) / 2.0
-        else:
-            strain = (F + F.transpose(-1, -2)) / 2.0 - eye
-        stress = assembly.gp_stress(F, self.material,
-                                    large=self.geometric_nonlinear)
-        return strain, stress, mises_stress(stress, self.material)
+        with span("femcy.post"):
+            F = self.deformation_gradient()
+            eye = torch.eye(self.mesh.dm, dtype=F.dtype, device=F.device)
+            if self.geometric_nonlinear:
+                strain = (F.transpose(-1, -2) @ F - eye) / 2.0
+            else:
+                strain = (F + F.transpose(-1, -2)) / 2.0 - eye
+            stress = assembly.gp_stress(F, self.material,
+                                        large=self.geometric_nonlinear)
+            return strain, stress, mises_stress(stress, self.material)
 
     def elastic_energy(self) -> float:
         """Total elastic energy = sum psi(F) * vol over the most recently
