@@ -51,8 +51,19 @@ other lanes' share of the card and the host.
    forces, bit-identical on a rerun, at
    NX=56 timed in turns with its plain version and one ``index_add_`` of
    the forces over their int64 dof targets; and, in float64 at NX=56, the
-   Ke -> planes transpose of ``structured_dia_scatter`` (the box Newton
-   tangent's way into P2) timed beside P2, with the call's peak memory.
+   Ke -> planes transpose of ``structured_dia_scatter`` (the box's way
+   into P2 for element matrices M9 does not make) timed beside P2, with
+   the call's peak memory.  Then M9, the box's Newton element kernel
+   (kinematics, stress, element force and Ke + Kg straight into P2's
+   planes), in float32 and float64 on box_tets(9, 7, 5), the two M5 edge
+   boxes and (56, 56, 56), on the setup's gradients and a seeded
+   displacement: planes, element forces and volumes within 1e-13 (f64) or
+   1e-5 (f32) of the largest value of its plain version (the einsum chain,
+   run on the CPU below NX=56 and on the card at NX=56), bit-identical on
+   a rerun; at NX=56 timed in turns with the einsum chain it replaces,
+   beside its bound (bytes over 3.35 TB/s or fembench's dense operation
+   count over the peak) and share, its registers and spills and both
+   calls' peak memory.
 5. multigrid slice (the main path): FEMSystem(box_tets(56, 56, 56),
    LinearIsotropic(1000, 0.3), SolverConfig(preconditioner="multigrid"),
    device="cuda") in float64 (555,579 dofs; levels 56^3 -> 28^3 -> 14^3 ->
@@ -157,7 +168,7 @@ other lanes' share of the card and the host.
    rotation hook under ``*Boundary, user`` (``TWIST``: 3.6 degrees in five
    increments), every launch counter zeroed just before the solve and
    read just after.  Checks: success, the increment/Newton history
-   against ``EXPECTED_NEWTON``, M5 and P2 launched once per Newton
+   against ``EXPECTED_NEWTON``, M9, M5 and P2 launched once per Newton
    evaluation, no kernel of another path, the f64 host residual
    (``assembly_host.internal_force_host`` at the final dof, BC rows
    zeroed) within 1e-8 of the last residual the device reported (its rms,
@@ -289,7 +300,7 @@ other lanes' share of the card and the host.
 24. Riks: ``riks_solve`` on the box Newton cell's mesh and system
    (box_tets(56), nlgeom, the multigrid CG), z = 0 clamped, a pressure of
    20 on the z = 1 face, lam_target 1: success, no limit point, the step
-   history against ``EXPECTED_RIKS``, M5 and P2 once per evaluation, P1
+   history against ``EXPECTED_RIKS``, M9, M5 and P2 once per evaluation, P1
    in the solves, no other kernel, the f64 host residual at the final
    state within the Riks tolerance and the dof within 1e-6 of a
    load-controlled ``FEMSystem.solve`` of the same load.
@@ -320,8 +331,8 @@ other lanes' share of the card and the host.
    alone.
 29. fused Newton: the pinned twist with ``fused_newton=True`` on the ELL
    slice's mesh (M4, M1 and M2: the "ELL Newton" history, as the same
-   Jacobi CG runs on the same operator) and on box_tets(16) (M5, P2 and
-   P1), through ``newton_run``.
+   Jacobi CG runs on the same operator) and on box_tets(16) (M9, M5, P2
+   and P1), through ``newton_run``.
 30. device loop: the pinned twist on the ELL slice's mesh with
    ``device_loop=True``: the records against ``EXPECTED_NEWTON``, M1 once
    per full evaluation, M4 also once per residual probe, M2 in the CG
@@ -414,8 +425,8 @@ other lanes' share of the card and the host.
    call's (null for P3, which no single PyTorch call computes from
    coordinates), its bound (the larger of its bytes over 3.35 TB/s and its
    operations over the f64 peak, from this run's shapes) and the launches
-   of the path that runs it (P1 and P3 from the multigrid slice, P2 and
-   M5 from the box Newton path, M1 and M2 from the ELL slice, M4 from the
+   of the path that runs it (P1 and P3 from the multigrid slice, P2, M5
+   and M9 from the box Newton path, M1 and M2 from the ELL slice, M4 from the
    ELL Newton path, M3 from the AMG slice, M6 from the mixed box, P1's
    windowed entry point from the multigrid slab of phase 33, M7 from the
    sharded ELL solve, M8 from the banded cell); then
@@ -442,6 +453,10 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 DEVICE = "cuda"
 SMALL, FULL = (9, 7, 5), (56, 56, 56)
+#: M9 against its plain version, relative to the largest value: the same
+#: terms summed in another order, with FMAs (a few ulps in f64; f32's
+#: Green strain F^T F - I loses ~1e-7 over the strain to cancellation)
+M9_TOL = {"float32": 1e-5, "float64": 1e-13}
 #: boxes M5 is also held to its plain version on: one that is no multiple
 #: of its tile (and is also run at a small tile), one thinner than a tile
 M5_EDGE_BOXES = ((5, 6, 19), (2, 3, 1))
@@ -708,6 +723,7 @@ def launch_counters():
         ell_spmv,
         internal_force,
         mixed_scatter,
+        newton_element,
         structured_accumulate,
         structured_force,
         structured_fused,
@@ -721,6 +737,7 @@ def launch_counters():
             "ell_spmv": ell_spmv.spmv,
             "internal_force": internal_force.scatter_force,
             "structured_force": structured_force.force_scatter,
+            "newton_element": newton_element.evaluate,
             "bell_spmv": bell_spmv.spmv,
             "mixed_scatter": mixed_scatter.scatter,
             "btd_scatter": btd_scatter.scatter}
@@ -980,9 +997,9 @@ def box_force_checks(torch, card, results):
     and one ``index_add_`` over the int64 dof targets.  The same checks,
     untimed, on ``M5_EDGE_BOXES`` (the first also at a 2 x 3 x 2 tile).
     Then, in float64
-    at NX=56, the Ke -> planes transpose of ``structured_dia_scatter`` timed
-    beside P2 on the box's element stiffnesses, with the call's peak
-    memory."""
+    at NX=56, the Ke -> planes transpose of ``structured_dia_scatter`` (the
+    way into P2 of the element matrices M9 does not make) timed beside P2
+    on the box's element stiffnesses, with the call's peak memory."""
     from femcy_tpu_torch import assembly
     from femcy_tpu_torch.kernels import structured_accumulate as k_acc
     from femcy_tpu_torch.kernels import structured_force as k_sf
@@ -1047,7 +1064,7 @@ def box_force_checks(torch, card, results):
         del f_e, f_k
         torch.cuda.empty_cache()
 
-    # the box Newton tangent's Ke -> planes transpose beside P2
+    # structured_dia_scatter's Ke -> planes transpose beside P2
     mat = LinearIsotropic(1000.0, 0.3)
 
     def dev(a):
@@ -1078,6 +1095,108 @@ def box_force_checks(torch, card, results):
           f"{peak / 1e9:.3f} GB", flush=True)
     del Ke, planes
     torch.cuda.empty_cache()
+
+
+def newton_element_checks(torch, card, results):
+    """Phase 4c: M9, the box's Newton element kernel, in float32 and
+    float64 on box_tets(9, 7, 5), (5, 6, 19), (2, 3, 1) and (56, 56, 56),
+    on the setup's gradients and a seeded displacement (a few hundredths
+    of a cell): its planes, element forces and volumes against its plain
+    version (the einsum chain and the Ke -> planes transpose) run on the
+    CPU below NX=56 and on the card at NX=56, within 1e-13 (f64) or 1e-5
+    (f32) of the largest value, and bit-identical on a rerun.  At NX=56
+    the kernel and the einsum chain it replaces are timed in turns, with
+    the bound (bytes over 3.35 TB/s or the dense operations over the f64
+    or f32 peak), the kernel's registers and spills, and each call's peak
+    memory."""
+    from fembench.harness.roofline import C3D4_EVAL_FLOPS
+    from femcy_tpu_torch import assembly
+    from femcy_tpu_torch.kernels import newton_element as k_ne
+    from femcy_tpu_torch.materials import LinearIsotropic
+    from femcy_tpu_torch.meshgen import box_tets
+    from femcy_tpu_torch.solvers.dia import build_structured_dia_pattern
+    from femcy_tpu_torch.structured import (
+        build_structured_plan,
+        newton_element_plain,
+    )
+
+    mat = LinearIsotropic(1000.0, 0.3)
+    for dims in (SMALL,) + M5_EDGE_BOXES + (FULL,):
+        mesh = box_tets(*dims)
+        plan = build_structured_plan(mesh, build_structured_dia_pattern(mesh))
+        u_np = (np.random.default_rng(20).standard_normal(mesh.n_dof)
+                * 0.05 / max(dims))
+        for dtype in (torch.float32, torch.float64):
+            name = str(dtype).split(".")[1]
+
+            def dev(a, dt=dtype):
+                return torch.as_tensor(np.asarray(a), dtype=dt, device=DEVICE)
+
+            nodes, u = dev(mesh.nodes), dev(u_np)
+            dsdX0, _ = assembly.gradients_and_volume(
+                nodes, dev(mesh.elements, torch.int64),
+                dev(mesh.element.dshape_at_gp),
+                dev(mesh.element.gauss_weights))
+            args = (nodes, u, dsdX0, mat, plan, mesh)
+            got = k_ne.evaluate(*args)
+            if dims == FULL:
+                want = newton_element_plain(nodes, u, dsdX0, mat, mesh)
+            else:
+                want = newton_element_plain(nodes.cpu(), u.cpu(),
+                                            dsdX0.cpu(), mat, mesh)
+            rels = []
+            for what, g, w in zip(("planes", "f_elem", "vol"), got, want):
+                w = w.to(DEVICE)
+                check(g.shape == w.shape, f"M9 {dims} {name}: {what} shape")
+                rel = float((g - w).abs().max() / w.abs().max())
+                rels.append(rel)
+                check(rel <= M9_TOL[name],
+                      f"M9 {dims} {name}: {what} {rel:.3e} from the plain "
+                      "version")
+            again = k_ne.evaluate(*args)
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"M9 {dims} {name}: rerun not bit-identical")
+            print(f"newton element kernel {dims} {name}: M9 against the "
+                  f"plain version ({'card' if dims == FULL else 'CPU'}): "
+                  f"planes {rels[0]:.3e}, f_elem {rels[1]:.3e}, vol "
+                  f"{rels[2]:.3e} of the largest value; bit-identical rerun",
+                  flush=True)
+            del got, want, again
+            if dims != FULL:
+                continue
+            torch.cuda.empty_cache()
+            peaks = []
+            for fn in (lambda: newton_element_plain(nodes, u, dsdX0, mat,
+                                                    mesh),
+                       lambda: k_ne.evaluate(*args)):
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                out = fn()
+                torch.cuda.synchronize()
+                peaks.append(torch.cuda.max_memory_allocated() - base)
+                del out
+            ms, pms, _ = in_turns(
+                lambda: newton_element_plain(nodes, u, dsdX0, mat, mesh),
+                lambda: k_ne.evaluate(*args), 3, 20)
+            E, n_nodes = mesh.n_elements, mesh.n_nodes
+            item = nodes.element_size()
+            # written: the planes, f_elem, vol; read: dsdX0, nodes and u
+            n_bytes = (6 * 144 * (E // 6) + 12 * E + E + 12 * E
+                       + 6 * n_nodes) * item
+            b = bound(n_bytes, E * C3D4_EVAL_FLOPS, name)
+            attrs = k_ne.kernel_attributes(dtype)
+            print(f"timing box_tets{dims} {name} on {card}: M9 "
+                  f"newton_element kernel {ms:.4f} ms, the einsum chain "
+                  f"(plain version) {pms:.4f} ms, bound {b[0]:.4f} ms "
+                  f"({b[1]}; {n_bytes / 1e6:.0f} MB), share "
+                  f"{100.0 * b[0] / ms:.1f}%; {attrs['registers']} registers "
+                  f"and {attrs['local_bytes']} local bytes a thread; peak "
+                  f"memory above the inputs: plain {peaks[0] / 1e9:.3f} GB, "
+                  f"M9 {peaks[1] / 1e9:.3f} GB", flush=True)
+            results[name]["newton_element"] = row(max(rels), ms, pms, None, b)
+            del nodes, u, dsdX0, args
+            torch.cuda.empty_cache()
 
 
 def two_stage_run(torch, full_ref):
@@ -1970,8 +2089,9 @@ def newton_run(torch, card, label: str, mesh, config: dict, force: str,
     FEMSystem.solve on the card, every launch counter zeroed just before
     and read just after.  Checks: success, the history against
     EXPECTED_NEWTON, the force kernel ``force`` (M5 or M4) and the tangent
-    kernel ``tangent`` (P2 or M1) launched once per Newton evaluation, no
-    kernel of another path, the f64 host residual (``internal_force_host``,
+    kernel ``tangent`` (P2 or M1) launched once per Newton evaluation, and
+    with M5 and P2 (the box's secant + Kg route) the Newton element kernel
+    M9 too, no kernel of another path, the f64 host residual (``internal_force_host``,
     BC rows zeroed) at the final dof within 1e-8 of the device's last
     reported residual (the rms, and the vector of a fresh evaluation),
     finite output of the expected shapes.  With ``warm``, a second solve
@@ -2038,6 +2158,13 @@ def newton_run(torch, card, label: str, mesh, config: dict, force: str,
     check(launches[force] == evals and launches[tangent] == evals,
           f"{label}: {force} launched {launches[force]} and {tangent} "
           f"{launches[tangent]} times for {evals} evaluations")
+    # the box's secant + Kg route makes its element work in M9
+    element = ("newton_element"
+               if (force, tangent) == ("structured_force",
+                                       "structured_accumulate") else None)
+    check(element is None or launches[element] == evals,
+          f"{label}: M9 launched {launches['newton_element']} times for "
+          f"{evals} evaluations")
     if not cg:
         spmv = None
     elif builds:
@@ -2047,7 +2174,7 @@ def newton_run(torch, card, label: str, mesh, config: dict, force: str,
     else:
         spmv = "dia_spmv" if system.dia is not None else "ell_spmv"
     for name, n in launches.items():
-        if name not in (force, tangent, spmv):
+        if name not in (force, tangent, spmv, element):
             check(n == 0, f"{label}: {name} launched {n} times")
     check(spmv is None or launches[spmv] > 0, f"{label}: no SpMV launched")
     E = mesh.n_elements
@@ -3987,13 +4114,15 @@ def riks_run(torch, card):
           f"Riks: history {history}, {EXPECTED_RIKS} expected")
     n = len(evals)
     check(launches["structured_force"] == n
-          and launches["structured_accumulate"] == n,
-          f"Riks: M5 launched {launches['structured_force']} and P2 "
-          f"{launches['structured_accumulate']} times for {n} evaluations")
+          and launches["structured_accumulate"] == n
+          and launches["newton_element"] == n,
+          f"Riks: M5 launched {launches['structured_force']}, P2 "
+          f"{launches['structured_accumulate']} and M9 "
+          f"{launches['newton_element']} times for {n} evaluations")
     check(launches["dia_spmv"] > 0, "Riks: P1 never launched")
     for name, k in launches.items():
         if name not in ("structured_force", "structured_accumulate",
-                        "dia_spmv"):
+                        "newton_element", "dia_spmv"):
             check(k == 0, f"Riks: {name} launched {k} times")
     patterns, tractions = bc_mod.build_neumann_patterns(mesh, inp.neumann_bcs)
     q = tractions @ patterns
@@ -5826,6 +5955,7 @@ def main() -> int:
     coarse_spmv_checks(torch)
     p2_launches = two_stage_run(torch, full_ref)
     box_force_checks(torch, card, results)
+    newton_element_checks(torch, card, results)
     iters = {}
     mg_keep = {}
     launches, iters["multigrid box"] = slice_run(torch, card, full_ref,
@@ -5973,6 +6103,7 @@ def main() -> int:
     launches["structured_accumulate"] = by_path["box Newton"][
         "structured_accumulate"]
     launches["structured_force"] = by_path["box Newton"]["structured_force"]
+    launches["newton_element"] = by_path["box Newton"]["newton_element"]
     launches["internal_force"] = by_path["ELL Newton"]["internal_force"]
     print("launches per solve, by path: " + json.dumps(
         {path: {k: v for k, v in counts.items() if v}
@@ -6014,6 +6145,9 @@ def main() -> int:
                            "femcy_tpu/assembly.py:198"),
         "structured_force": ("femcy_tpu_torch/csrc/structured_force.cu",
                              "femcy_tpu/structured.py:476"),
+        # M9 takes the place of the box Newton evaluation's einsums
+        "newton_element": ("femcy_tpu_torch/csrc/c3d4_newton_element.cu",
+                           "femcy_tpu/system.py:633"),
         "bell_spmv": ("femcy_tpu_torch/csrc/bell_spmv.cu",
                       "femcy_tpu/solvers/bell.py:147"),
         "mixed_scatter": ("femcy_tpu_torch/csrc/mixed_scatter.cu",

@@ -18,5 +18,6 @@ scatters and gathers:
 - bell_spmv.spmv                 <- solvers/bell.bell_spmv (M3, the algebraic multigrid)
 - internal_force.scatter_force   <- assembly.internal_force (M4, general layouts)
 - structured_force.force_scatter <- structured.structured_force_scatter (M5, the box)
+- newton_element.evaluate        <- the box Newton evaluation's einsums, system._internal_force_parts + _newton_eval (M9)
 - mixed_scatter.scatter          <- mixed.MixedSystem._assemble_impl (M6, beams + continuum)
 """

@@ -22,16 +22,20 @@ of three routes:
 On CUDA the default is "fused" where it applies and "pallas" otherwise;
 on the CPU it is the plain path.
 
-The Newton path also assembles from element matrices:
-``structured_dia_scatter`` (Ke + Kg, or the consistent tangent, as P2's
-planes); its secant tangent alone takes ``structured_assemble_coords``
-from the current coordinates.  ``structured_assemble`` takes gradients
-and volumes to DIA values through P2, one orientation of Ke at a time
-(femcy_tpu's public function; no path of the port calls it), and
-``analytic_dia_values_device`` builds the analytic box operator with its
-Dirichlet elimination on the device.  ``structured_force_scatter`` sums
-element forces into nodal forces by the same corner shifts (the plain
-version of M5, kernels/structured_force.py).
+The Newton path's secant + geometric tangent of a C3D4 box under a
+PK2 = C : E material comes from the Newton element kernel (M9,
+kernels/newton_element.py), which writes Ke + Kg straight into P2's
+planes; ``newton_element_plain`` is its plain version.  Its other element
+matrices (the consistent tangent, Ke + Kg of other materials) go through
+``structured_dia_scatter``, as P2's planes; its secant tangent alone takes
+``structured_assemble_coords`` from the current coordinates.
+``structured_assemble`` takes gradients and volumes to DIA values through
+P2, one orientation of Ke at a time (femcy_tpu's public function; no path
+of the port calls it), and ``analytic_dia_values_device`` builds the
+analytic box operator with its Dirichlet elimination on the device.
+``structured_force_scatter`` sums element forces into nodal forces by the
+same corner shifts (the plain version of M5,
+kernels/structured_force.py).
 """
 
 from __future__ import annotations
@@ -338,6 +342,41 @@ def structured_assemble(dsdx, vol, C, plan: StructuredPlan):
         planes[o] = assembly.element_stiffness(
             dsdx_o[:, o], vol_o[:, o], C, layout="ije").reshape(144, nc)
     return _accumulate(planes, plan)
+
+
+def newton_element_plain(nodes, u, dsdX0, material, mesh: FEMesh):
+    """The plain version of the box's Newton element kernel (M9,
+    kernels/newton_element.py): node coordinates (N, 3), the pinned
+    displacement (3 N,) and the initial gradients dsdX0 (E, 1, 4, 3) of a
+    box_tets C3D4 mesh -> (planes (6, 144, nx*ny*nz), f_elem (E, 4, 3),
+    vol (E, 1)).
+
+    The Newton evaluation's einsum chain, composed as the general route
+    runs it: the element nodes by grid slices, F, the current gradients and
+    volumes, the Cauchy stress (``gp_stress``, large), the element force,
+    then Ke + Kg transposed to P2's planes (``structured_dia_scatter``'s
+    layout: plane [o, 12 p + q] holds entry (p, q) of every cell's
+    orientation-o element)."""
+    info = _box_info(mesh)
+    nc = info["nx"] * info["ny"] * info["nz"]
+    elem = mesh.element
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a), dtype=nodes.dtype,
+                               device=nodes.device)
+
+    dN, w, C = dev(elem.dshape_at_gp), dev(elem.gauss_weights), dev(material.C)
+    u_nodes = u.reshape(-1, nodes.shape[1])
+    F = assembly.deformation_gradient_u(
+        structured_element_nodes(u_nodes, mesh), dsdX0)
+    dsdx, vol = assembly.gradients_and_volume_x(
+        structured_element_nodes(nodes + u_nodes, mesh), dN, w)
+    sigma = assembly.gp_stress(F, material, large=True)
+    f_elem = assembly.element_internal_force(dsdx, sigma, vol).contiguous()
+    Ke = assembly.element_stiffness(dsdx, vol, C)
+    Ke += assembly.geometric_stiffness(dsdx, sigma, vol)
+    planes = Ke.reshape(nc, 6, 144).permute(1, 2, 0).contiguous()
+    return planes, f_elem, vol
 
 
 def structured_force_scatter(f_elem, plan: StructuredPlan, mesh: FEMesh):

@@ -40,7 +40,10 @@ three layouts:
   stiffness plus geometric stiffness (the default) or the consistent
   tangent, both scattered as element matrices (P2 on the box through
   ``structured_dia_scatter``, M1 on the general layouts), or without
-  geometric stiffness on the box from the current coordinates (P3);
+  geometric stiffness on the box from the current coordinates (P3).  On a
+  C3D4 box under a PK2 = C : E material the secant + geometric tangent
+  takes one kernel from the displacement to the stress, the element force
+  and P2's planes of Ke + Kg (kernels/newton_element, M9), then M5 and P2;
 - the adaptive load-stepping loop of ``solve`` is the JAX package's:
   cutback, dt growth, the "extrapolate" predictor, the global or
   per-increment residual reference (kept in checkpoints), the failure
@@ -85,10 +88,11 @@ from femcy_tpu_torch import assembly, bc as bc_mod
 from femcy_tpu_torch.config import SolverConfig
 from femcy_tpu_torch.io.inp import InpModel
 from femcy_tpu_torch.kernels import bell_spmv as k_bell
-from femcy_tpu_torch.kernels import ell_spmv
+from femcy_tpu_torch.kernels import ell_spmv, newton_element
 from femcy_tpu_torch.kernels.dia_spmv import make_spmv
 from femcy_tpu_torch.kernels.ell_scatter import build_scatter_plan, scatter
 from femcy_tpu_torch.kernels.internal_force import scatter_force
+from femcy_tpu_torch.kernels.structured_accumulate import accumulate
 from femcy_tpu_torch.kernels.structured_force import force_scatter
 from femcy_tpu_torch.materials import Material
 from femcy_tpu_torch.mesh import FEMesh
@@ -690,6 +694,11 @@ class FEMSystem:
             "gradients", lambda: assembly.gradients_and_volume(
                 arrs["nodes"], arrs["elements"], arrs["dN"], arrs["w"]))
         self._arrs = arrs
+        #: the box's secant + Kg Newton evaluation by the Newton element
+        #: kernel (M9, kernels/newton_element.py; its plain version on the
+        #: CPU) in place of the einsum route
+        self._newton_element = newton_element.route_applies(
+            mesh, material, config, self._structured_plan)
 
         # --- state ----------------------------------------------------------
         self.dof = torch.zeros(mesh.n_dof, dtype=dtype, device=device)
@@ -913,17 +922,51 @@ class FEMSystem:
                 f_int = f_int + d * (dof - self._stab_ref)
         return dof, coords, dsdx, vol, sigma, f_int
 
+    def _newton_element_parts(self, dof, fixed, sval):
+        """The box's secant + Kg evaluation by the Newton element kernel
+        (M9): pin the prescribed dofs, then one launch for the planes of
+        Ke + Kg, the element forces and the volumes, M5 for the internal
+        force (with the stabilization force when on) and P2 for the tangent.
+        Returns (pinned dof, values, f_int, vol).  Under a profile M9 is
+        the span "femcy.newton.tangent", M5 ".force", P2 ".scatter", and
+        ".stress" is empty."""
+        a = self._arrs
+        plan = self._structured_plan
+        with span("femcy.newton.kinematics"):
+            dof = bc_mod.pin_dof(dof, fixed, sval)
+        with span("femcy.newton.stress"):
+            pass
+        with span("femcy.newton.tangent"):
+            planes, f_elem, vol = newton_element.evaluate(
+                a["nodes"], dof, a["dsdX0"], self.material, plan, self.mesh)
+        with span("femcy.newton.force"):
+            f_int = force_scatter(f_elem, plan, self.mesh)
+            if self._stab_diag is not None:
+                d = self._stab_scale * self._stab_diag
+                f_int = f_int + d * (dof - self._stab_ref)
+        del f_elem
+        with span("femcy.newton.scatter"):
+            values = accumulate(planes, plan.accumulate_table)
+        return dof, values, f_int, vol
+
     def _newton_eval(self, dof, rhs, fixed, sval):
         """One full residual/Jacobian evaluation of the Newton method.
 
         Pins the prescribed dofs, computes internal force and tangent on the
         current configuration, applies the Newton Dirichlet treatment and
         returns (pinned dof, K_bc, residual_bc, rms residual tensor, vol)
-        (ref: stiffnessMtrx.py:609-644 + 756-758 + 310-341).  Under a
-        profile the element tangent is the span "femcy.newton.tangent" and
-        its scatter "femcy.newton.scatter"; the box's route without Kg has
-        the scatter alone, since P3 makes the tangent inside it.
+        (ref: stiffnessMtrx.py:609-644 + 756-758 + 310-341).  The box's
+        secant + Kg tangent of a C3D4 mesh takes the Newton element kernel
+        (``_newton_element_parts``); every other route the einsums below.
+        Under a profile the element tangent is the span
+        "femcy.newton.tangent" and its scatter "femcy.newton.scatter"; the
+        box's route without Kg has the scatter alone, since P3 makes the
+        tangent inside it.
         """
+        if self._newton_element:
+            dof, values, f_int, vol = self._newton_element_parts(
+                dof, fixed, sval)
+            return self._newton_finish(dof, values, f_int, rhs, fixed, vol)
         a = self._arrs
         cfg = self.config
         dof, coords, dsdx, vol, sigma, f_int = self._internal_force_parts(
@@ -946,6 +989,11 @@ class FEMSystem:
         else:
             with span("femcy.newton.scatter"):
                 values = self._structured_values(coords)
+        return self._newton_finish(dof, values, f_int, rhs, fixed, vol)
+
+    def _newton_finish(self, dof, values, f_int, rhs, fixed, vol):
+        """The end of every Newton evaluation: the stabilization diagonal,
+        the residual and the Newton Dirichlet treatment."""
         self._add_stab_diag(values)
         residual = f_int - rhs
         values, residual = self._dirichlet_newton(values, residual, fixed)
