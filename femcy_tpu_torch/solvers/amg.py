@@ -44,6 +44,7 @@ import torch
 from femcy_tpu_torch.kernels import bell_spmv as k_bell
 from femcy_tpu_torch.solvers.dia import pcg
 from femcy_tpu_torch.utils.device import resolve_device
+from femcy_tpu_torch.utils.timing import span
 
 logger = logging.getLogger("femcy_tpu_torch")
 
@@ -499,22 +500,23 @@ class AlgebraicMultigrid:
             # filter, halved until the coarsening ratio is >= 3x.
             t0 = _time.perf_counter()
             theta = strength_theta if li > 0 else float(fine_strength_theta)
-            agg = n_agg = None
-            while True:
-                if li == 0 and fine_graph is not None and theta == 0.0:
-                    G = fine_graph
-                else:
-                    G = _node_graph_bsr(A, theta=theta)
-                agg, n_agg = _aggregate(G)
-                # an EXPLICIT fine filter accepts any non-degenerate
-                # coarsening; the adaptive halving otherwise keeps the
-                # ratio >= 3x to bound setup cost and operator complexity
-                accept = (
-                    0.6 if li == 0 and fine_strength_theta > 0.0 else 1 / 3.0
-                )
-                if n_agg * B.shape[1] <= accept * A.shape[0] or theta == 0.0:
-                    break
-                theta = theta / 2.0 if theta > 0.004 else 0.0
+            with span("femcy.setup.amg.aggregate"):
+                agg = n_agg = None
+                while True:
+                    if li == 0 and fine_graph is not None and theta == 0.0:
+                        G = fine_graph
+                    else:
+                        G = _node_graph_bsr(A, theta=theta)
+                    agg, n_agg = _aggregate(G)
+                    # an EXPLICIT fine filter accepts any non-degenerate
+                    # coarsening; the adaptive halving otherwise keeps the
+                    # ratio >= 3x to bound setup cost and operator complexity
+                    accept = (0.6 if li == 0 and fine_strength_theta > 0.0
+                              else 1 / 3.0)
+                    if (n_agg * B.shape[1] <= accept * A.shape[0]
+                            or theta == 0.0):
+                        break
+                    theta = theta / 2.0 if theta > 0.004 else 0.0
             self.setup_seconds["aggregate"] += _time.perf_counter() - t0
             if n_agg * B.shape[1] >= 0.6 * A.shape[0]:
                 break  # coarsening ratio too poor to pay for another level
@@ -532,16 +534,15 @@ class AlgebraicMultigrid:
             # P = P0 - (omega/lmax) D^-1 (A @ P0), the diagonal scaling
             # applied in place on the BSR block rows
             _t = _time.perf_counter()
-            Z = A @ P0
-            zrows = np.repeat(
-                np.arange(Z.shape[0] // blk, dtype=np.int64),
-                np.diff(Z.indptr),
-            )
-            Z.data *= (
-                host_dtype.type(omega / lmax)
-                * inv_diag.astype(host_dtype).reshape(-1, blk)[zrows][:, :, None]
-            )
-            P = P0 - Z
+            with span("femcy.setup.amg.smooth"):
+                Z = A @ P0
+                zrows = np.repeat(
+                    np.arange(Z.shape[0] // blk, dtype=np.int64),
+                    np.diff(Z.indptr),
+                )
+                scale = inv_diag.astype(host_dtype).reshape(-1, blk)[zrows]
+                Z.data *= host_dtype.type(omega / lmax) * scale[:, :, None]
+                P = P0 - Z
             self.setup_seconds["rap"] += _time.perf_counter() - _t
             _t = _time.perf_counter()
             pv, pc = _bsr_to_bell(P)
@@ -551,7 +552,8 @@ class AlgebraicMultigrid:
             lv["P"] = (pv.astype(np_dtype), pc)
             lv["R"] = (rv.astype(np_dtype), rc)
             _t = _time.perf_counter()
-            A = _regularize_bsr(R @ (A @ P))
+            with span("femcy.setup.amg.galerkin"):
+                A = _regularize_bsr(R @ (A @ P))
             self.setup_seconds["rap"] += _time.perf_counter() - _t
             B = Bc
             li += 1
@@ -582,10 +584,11 @@ class AlgebraicMultigrid:
         self._single = len(staged) == 1
 
         _t = _time.perf_counter()
-        self.levels: List[_AMGLevel] = _device_levels(staged, self.device)
-        self._coarse_inv = torch.as_tensor(coarse_inv, device=self.device)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with span("femcy.setup.amg.upload"):
+            self.levels: List[_AMGLevel] = _device_levels(staged, self.device)
+            self._coarse_inv = torch.as_tensor(coarse_inv, device=self.device)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         self.setup_seconds["upload"] = _time.perf_counter() - _t
         self.setup_seconds["total"] = _time.perf_counter() - _t_total
         self.setup_seconds["other"] = self.setup_seconds["total"] - sum(

@@ -1341,57 +1341,59 @@ class FEMSystem:
         if self._amg is not None and self._amg_fixed_key == key:
             self._amg_fixed_obj = fixed
             return
-        if self._bell_plan is None:
-            t = _time.perf_counter()
-            self._bell_plan = build_bell_plan(self.pattern, self.mesh.dm)
-            self._bell_fine = k_bell.fine_plan(self._bell_plan, self.device)
-            host_s["bell_plan"] = _time.perf_counter() - t
-        plan = self._bell_plan
-        n_dof = self.mesh.n_dof
-        if values is not None:
-            # the exact operator being solved, pulled back in bf16: the
-            # hierarchy is a preconditioner, 8 significand bits suffice
-            t = _time.perf_counter()
-            values_np = values.to(torch.bfloat16).float().cpu().numpy()
-            host_s["pullback"] = _time.perf_counter() - t
-            # direct BSR from the blockwise ELL layout: a reshape and a
-            # boolean select, no CSR intermediate
-            t = _time.perf_counter()
-            dm = plan.dm
-            blocks = values_np.reshape(
-                plan.n_nodes, dm, plan.width, dm
-            ).transpose(0, 2, 1, 3)[plan.valid]
-            indptr = np.zeros(plan.n_nodes + 1, dtype=np.int64)
-            np.cumsum(plan.valid.sum(axis=1), out=indptr[1:])
-            K_bc = sp.bsr_matrix(
-                (blocks, plan.ncol[plan.valid].astype(np.int64), indptr),
-                shape=(n_dof, n_dof),
-            )
-            host_s["bsr"] = _time.perf_counter() - t
-        else:
-            t = _time.perf_counter()
-            if self._amg_raw_csr is None:
-                self._amg_raw_csr = assembly_host.assemble_csr_host(
-                    self.mesh, self.pattern, np.asarray(self.material.C)
+        with span("femcy.setup.amg"):
+            if self._bell_plan is None:
+                t = _time.perf_counter()
+                self._bell_plan = build_bell_plan(self.pattern, self.mesh.dm)
+                self._bell_fine = k_bell.fine_plan(self._bell_plan,
+                                                   self.device)
+                host_s["bell_plan"] = _time.perf_counter() - t
+            plan = self._bell_plan
+            n_dof = self.mesh.n_dof
+            if values is not None:
+                # the exact operator being solved, pulled back in bf16: the
+                # hierarchy is a preconditioner, 8 significand bits suffice
+                t = _time.perf_counter()
+                values_np = values.to(torch.bfloat16).float().cpu().numpy()
+                host_s["pullback"] = _time.perf_counter() - t
+                # direct BSR from the blockwise ELL layout: a reshape and a
+                # boolean select, no CSR intermediate
+                t = _time.perf_counter()
+                dm = plan.dm
+                blocks = values_np.reshape(
+                    plan.n_nodes, dm, plan.width, dm
+                ).transpose(0, 2, 1, 3)[plan.valid]
+                indptr = np.zeros(plan.n_nodes + 1, dtype=np.int64)
+                np.cumsum(plan.valid.sum(axis=1), out=indptr[1:])
+                K_bc = sp.bsr_matrix(
+                    (blocks, plan.ncol[plan.valid].astype(np.int64), indptr),
+                    shape=(n_dof, n_dof),
                 )
-            zeros = np.zeros(n_dof)
-            K_bc, _ = assembly_host.dirichlet_csr_host(
-                self._amg_raw_csr, zeros, fixed_np, zeros
+                host_s["bsr"] = _time.perf_counter() - t
+            else:
+                t = _time.perf_counter()
+                if self._amg_raw_csr is None:
+                    self._amg_raw_csr = assembly_host.assemble_csr_host(
+                        self.mesh, self.pattern, np.asarray(self.material.C)
+                    )
+                zeros = np.zeros(n_dof)
+                K_bc, _ = assembly_host.dirichlet_csr_host(
+                    self._amg_raw_csr, zeros, fixed_np, zeros
+                )
+                host_s["host_twin"] = _time.perf_counter() - t
+            t = _time.perf_counter()
+            # the plan already holds the node adjacency: the hierarchy's fine
+            # graph (fully fixed nodes isolated, as in the eliminated operator)
+            fine_graph = plan_node_graph(plan, fixed_np)
+            host_s["fine_graph"] = _time.perf_counter() - t
+            self._amg = None  # release the old hierarchy before the new one
+            self._amg = AlgebraicMultigrid(
+                K_bc, self.mesh.dm, self.mesh.nodes, fixed_np,
+                fine_strength_theta=self.config.amg_fine_theta,
+                dtype=self.dtype, fine_graph=fine_graph, device=self.device,
             )
-            host_s["host_twin"] = _time.perf_counter() - t
-        t = _time.perf_counter()
-        # the plan already holds the node adjacency: the hierarchy's fine
-        # graph (fully fixed nodes isolated, as in the eliminated operator)
-        fine_graph = plan_node_graph(plan, fixed_np)
-        host_s["fine_graph"] = _time.perf_counter() - t
-        self._amg = None  # release the old hierarchy before the new one
-        self._amg = AlgebraicMultigrid(
-            K_bc, self.mesh.dm, self.mesh.nodes, fixed_np,
-            fine_strength_theta=self.config.amg_fine_theta,
-            dtype=self.dtype, fine_graph=fine_graph, device=self.device,
-        )
-        self._amg_fixed_key = key
-        self._amg_fixed_obj = fixed
+            self._amg_fixed_key = key
+            self._amg_fixed_obj = fixed
         host_s["unattributed"] = (
             _time.perf_counter() - wall0
             - sum(host_s.values())
